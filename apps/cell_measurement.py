@@ -15,16 +15,10 @@ import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
+from empower_srslte_tpu.backend import configure_compile_cache
 from empower_srslte_tpu.models.ue_sync import sync_and_align
 from empower_srslte_tpu.runtime.io import FileSource
 from empower_srslte_tpu.runtime.logging import get_logger
-
-
-def _select_platform(use_tpu: bool):
-    import jax
-
-    if not use_tpu:
-        jax.config.update("jax_platforms", "cpu")
 
 
 def measure(subframes, cell_prb: int, cell_id: int) -> dict:
@@ -63,13 +57,12 @@ def measure(subframes, cell_prb: int, cell_id: int) -> dict:
     return {k: float(np.mean(np.concatenate(v))) for k, v in acc.items()}
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("-i", "--input", required=True)
     ap.add_argument("-p", "--nof-prb", type=int, default=25)
-    ap.add_argument("--tpu", action="store_true", help="run on the TPU backend")
-    args = ap.parse_args()
-    _select_platform(args.tpu)
+    args = ap.parse_args(argv)
+    configure_compile_cache()
 
     log = get_logger("MEAS", "info")
     samples = FileSource(args.input).read_all()

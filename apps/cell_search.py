@@ -13,27 +13,20 @@ import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
+from empower_srslte_tpu.backend import configure_compile_cache
 from empower_srslte_tpu.models.ue_dl import ue_mib_decode
 from empower_srslte_tpu.models.ue_sync import sync_and_align
 from empower_srslte_tpu.runtime.io import FileSource
 from empower_srslte_tpu.runtime.logging import get_logger
 
 
-
-def _select_platform(use_tpu: bool):
-    import jax
-
-    if not use_tpu:
-        jax.config.update("jax_platforms", "cpu")
-
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("-i", "--input", required=True)
     ap.add_argument("-p", "--nof-prb", type=int, default=6,
                     help="search bandwidth (6 = MIB acquisition rate)")
-    ap.add_argument("--tpu", action="store_true", help="run on the TPU backend")
-    args = ap.parse_args()
-    _select_platform(args.tpu)
+    args = ap.parse_args(argv)
+    configure_compile_cache()
 
     log = get_logger("SRCH", "info")
     samples = FileSource(args.input).read_all()

@@ -6,7 +6,9 @@ The integration the reference's three binaries perform (srsue/srsenb/
 srsepc), in one process: PRACH -> RAR -> msg3/contention resolution ->
 RRC connection -> NAS mutual auth -> AS security -> DRB setup.
 
-  python apps/lte_attach.py [--prb 25] [--snr 15] [--imsi ...] [--tpu]
+  python apps/lte_attach.py [--prb 25] [--snr 15] [--imsi ...]
+
+Runs on the accelerator JAX finds; JAX_PLATFORMS=cpu selects the CPU.
 """
 
 import argparse
@@ -23,15 +25,13 @@ def main():
                     help="air SNR in dB (default: noiseless)")
     ap.add_argument("--imsi", default="001010123456789")
     ap.add_argument("--max-tti", type=int, default=100)
-    ap.add_argument("--tpu", action="store_true")
     args = ap.parse_args()
 
-    import jax
-
-    if not args.tpu:
-        jax.config.update("jax_platforms", "cpu")
-
     import numpy as np
+
+    from empower_srslte_tpu.backend import configure_compile_cache
+
+    configure_compile_cache()
 
     from empower_srslte_tpu.epc import Hss, Subscriber
     from empower_srslte_tpu.epc.mme import Mme, UeNas

@@ -6,6 +6,8 @@ PDSCH for one RNTI and writes the IQ samples to a file or UDP sink.
 
 Usage:
   python apps/pdsch_enodeb.py -o /tmp/enb.bin -p 25 -m 10 -f 20
+
+Runs on the accelerator JAX finds; JAX_PLATFORMS=cpu selects the CPU.
 """
 
 import argparse
@@ -18,6 +20,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 import jax.numpy as jnp
 
+from empower_srslte_tpu.backend import configure_compile_cache
 from empower_srslte_tpu.models import dci as dci_mod
 from empower_srslte_tpu.models import ra
 from empower_srslte_tpu.models.enb_dl import (
@@ -31,14 +34,7 @@ from empower_srslte_tpu.runtime.logging import get_logger
 from empower_srslte_tpu.utils import Cell
 
 
-
-def _select_platform(use_tpu: bool):
-    import jax
-
-    if not use_tpu:
-        jax.config.update("jax_platforms", "cpu")
-
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("-o", "--output", required=True, help="IQ file or udp:host:port")
     ap.add_argument("-p", "--nof-prb", type=int, default=25)
@@ -47,9 +43,8 @@ def main():
     ap.add_argument("-r", "--rnti", type=lambda x: int(x, 0), default=0x1234)
     ap.add_argument("-f", "--nof-frames", type=int, default=10)
     ap.add_argument("--cfi", type=int, default=2)
-    ap.add_argument("--tpu", action="store_true", help="run on the TPU backend")
-    args = ap.parse_args()
-    _select_platform(args.tpu)
+    args = ap.parse_args(argv)
+    configure_compile_cache()
 
     log = get_logger("ENB", "info")
     cell = Cell(nof_prb=args.nof_prb, id=args.cell_id)

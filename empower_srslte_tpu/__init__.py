@@ -1,11 +1,11 @@
-"""empower_srslte_tpu — a TPU-native LTE PHY framework.
+"""empower_srslte_tpu — a batched JAX LTE PHY framework.
 
 A brand-new JAX/XLA/Pallas implementation of the complete LTE Release-8/9
 FDD PHY signal chain (the capability surface of the EmPOWER srsLTE fork):
 OFDM modulation/demodulation, PSS/SSS synchronization, channel estimation,
 ZF/MMSE equalization (TM1-TM4), soft demapping, HARQ rate (de)matching and
-windowed max-log-MAP turbo decoding — built for throughput batching on TPU
-device meshes rather than per-subframe real-time threading.
+windowed max-log-MAP turbo decoding — built for throughput batching on
+GPU device meshes rather than per-subframe real-time threading.
 
 Design stance (see SURVEY.md section 7): the unit of work is a
 ``[batch, ...]`` tensor of subframes / code blocks / carriers compiled under

@@ -3,7 +3,7 @@
 Capability parity with the reference's srsue MAC procedure objects
 (srsue/src/mac/proc_bsr.cc, proc_phr.cc, proc_sr.cc) and the
 srslte::timers service they run on (lib/include/srslte/common/timers.h).
-Host-side integer/state logic — the TPU carries the PHY; these drive
+Host-side integer/state logic — the accelerator carries the PHY; these drive
 what goes into each UL transport block.
 
 Behavioral contract (36.321 5.4.5 / 5.4.6 / 5.4.4, as the reference

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
+import jax
 import jax.numpy as jnp
 
 from ..ops.modem import Mod, demod_soft, modulate
@@ -91,6 +92,8 @@ def pcfich_decode(grid, h, cell: Cell, sf_idx: int, noise_est=0.0):
     llr = descramble_llrs(llr, cinit_pcfich(2 * sf_idx, cell.id))
     # correlate: bit 0 <-> +1
     signs = jnp.asarray(1.0 - 2.0 * CFI_CODEWORDS.astype(np.float32))
-    corr = jnp.einsum("...k,ck->...c", llr, signs)
+    # full float32 precision (a GPU would otherwise take it in TF32)
+    corr = jnp.einsum("...k,ck->...c", llr, signs,
+                      precision=jax.lax.Precision.HIGHEST)
     cfi = jnp.argmax(corr, axis=-1) + 1
     return cfi, jnp.max(corr, axis=-1) / jnp.sum(jnp.abs(llr), axis=-1)

@@ -150,10 +150,9 @@ def pdcch_blind_bits(llr, cands, size: int):
     64-state register-exchange Viterbi decodes all of them.
 
     The reference loops candidate-by-candidate (pdcch.c:341
-    dci_blind_search); a first TPU version kept one Viterbi per
-    (L, size) pair — 8 sequential 165-step trellis scans per subframe
-    that measured 9.7 ms of the 21.6 ms full-chain receiver. One scan
-    over a [n_cand * batch] axis does the same work in ~1/4 the steps.
+    dci_blind_search); one Viterbi per (L, size) pair would be 8
+    sequential 165-step trellis decodes per subframe. One decode over a
+    [n_cand * batch] axis does the same work in ~1/4 the steps.
 
     llr [..., n_cce*72] -> bits [..., n_cand, k], candidate order =
     ``cands`` order (grouped by L internally but restored).

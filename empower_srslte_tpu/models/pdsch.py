@@ -6,7 +6,7 @@ CRS/sync/PBCH regions (pdsch_cp, pdsch.c:95-214), per-RNTI scrambling
 CSI-weighted LLRs (csi_correction, pdsch.c:676-776), and the MIMO
 dispatch to single/SFBC/spatial-multiplexing paths.
 
-TPU-native design: the RE map is a precomputed flat index table per
+Batched design: the RE map is a precomputed flat index table per
 (cell, sf_idx, cfi, allocation) — one gather/scatter instead of the
 reference's per-symbol copy loops; everything below it is batched jnp.
 """
@@ -222,8 +222,8 @@ def _symbol_extract_plan(cell: Cell, sf_idx: int, cfi: int,
     per PRB, the sync/PBCH reservation removes whole central PRBs, and
     allocations mask whole PRBs. Each symbol therefore extracts with
     static PRB-run slices + a reshape + static column-run slices — no
-    lane-axis gather (which is what makes the naive ``flat[..., idx]``
-    formulation slow on TPU). Falls back to a gather for any symbol
+    gather along the minor axis, as the naive ``flat[..., idx]``
+    formulation needs. Falls back to a gather for any symbol
     whose mask does not factor (none do in practice).
     """
     nre = cell.nof_re
@@ -331,8 +331,7 @@ def _pdsch_decode_fused_grid(grid, h, cfg: PdschConfig, plan: DlschPlan,
     """Grid-domain fused receive path.
 
     The RE extraction (pdsch_extract's per-symbol slice/concat plans) was
-    the single most expensive stage of the fused receiver on TPU — lane-
-    granularity strided copies for every CRS comb. This path never
+    a set of strided copies for every CRS comb. This path never
     extracts: equalization, soft demapping, CSI weighting and
     descrambling run ELEMENTWISE over the full resource grid (compute on
     the ~15% non-PDSCH REs is wasted but free next to the copies), and
@@ -502,7 +501,7 @@ def pdsch_decode(grid, h, cfg: PdschConfig, plan: DlschPlan, noise_est=0.0,
     # Two codewords with the same plan and no HARQ state decode as ONE
     # dlsch call with a leading codeword axis — doubling the turbo-kernel
     # batch instead of dispatching two half-full (lane-padded) decodes
-    # (the TPU analog of the reference's TB0-coworker-thread split,
+    # (the batched analog of the reference's TB0-coworker-thread split,
     # pdsch.c:837-1007).
     if (len(plans) == 2 and plans[0] == plans[1]
             and softbuffers is None and softbuffers2 is None):

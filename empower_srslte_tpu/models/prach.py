@@ -12,7 +12,7 @@ against candidate roots, IDFT, peak search over the per-preamble shift
 zones returning preamble index and timing offset (prach_detect_offset,
 prach.c:575-677).
 
-TPU-native shape: generation is a host-side table build (one IFFT); the
+Batched shape: generation is a host-side table build (one IFFT); the
 hot path is detection, expressed as batched FFT -> gather -> conj-mul ->
 IFFT -> zone max over the whole subframe batch.
 """

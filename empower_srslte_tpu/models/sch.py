@@ -6,7 +6,7 @@ concatenation, sch.c:188-298) and decode_tb_cb (per-CB de-rate-matching
 with HARQ soft combining -> iterative turbo decode with CRC check ->
 reassembly -> TB CRC, sch.c:307-422).
 
-TPU-native design: a frozen ``DlschPlan`` captures every static dimension
+Batched design: a frozen ``DlschPlan`` captures every static dimension
 (segmentation, per-CB K/E/F, RV) so the whole TB decode is one compiled
 program; code blocks are decoded as a flattened [batch*C] turbo batch per
 K-group (the reference decodes CBs serially with per-CB early stop; here
@@ -25,7 +25,7 @@ import jax.numpy as jnp
 from ..ops.fec.cbsegm import CbSegm, cbsegm
 from ..ops.fec.rate_matching import RateMatchTurbo
 from ..ops.fec.turbo_decoder import TurboDecoder
-from ..ops.fec.turbo_encoder import turbo_encode_auto as turbo_encode
+from ..ops.fec.turbo_encoder import turbo_encode
 from ..utils.crc import CRC24A, CRC24B
 
 
@@ -40,17 +40,9 @@ def _cb_e_sizes(g: int, c: int, qm: int, n_layers: int) -> tuple[int, ...]:
 
 def _pick_window(k: int) -> int | None:
     """Window length for the parallel turbo decoder: the divisor of K
-    closest to 256 that is a multiple of 16 (the NII kernel's row-group
-    granularity) and >= 48 (the v1 path trains over a 40-step overlap).
-    Fewer, larger windows amortize the per-window program overheads of
-    the Pallas grid; None = full sweeps. TURBO_WIN overrides (perf
-    experiments: smaller windows shrink the kernel's VMEM beta store,
-    making room for wpp window interleaving)."""
-    import os
-
-    forced = int(os.environ.get("TURBO_WIN", 0))
-    if forced and k % forced == 0 and forced % 16 == 0:
-        return forced
+    closest to 256 that is a multiple of 16 (a whole number of the NII
+    kernel's checkpoint groups) and >= 48 (the scan path trains over a
+    40-step overlap). None = full sweeps."""
     best = None
     for w in range(48, min(k, 769), 16):
         if k % w == 0 and (best is None or
@@ -149,10 +141,15 @@ def _fused_geometry(shape, plan: DlschPlan):
     returns (lanes, sub, interpret) or None.
 
     The fused path (``_dlsch_decode_fused``) needs the NII Pallas kernel
-    (TPU, or interpret mode for tests), a window for every CB size, and a
-    trailing batch axis foldable into the kernel lane width.
+    (on the GPU, or interpret mode for tests) and a window for every CB
+    size. The kernel tile (``sub`` code-block slots by ``lanes`` batch
+    elements, at most TILE code blocks) follows the shape: ``lanes`` is
+    the largest power of two dividing the trailing batch axis, ``sub``
+    covers the slots of one K group without padding past a power of two.
     """
     import os
+
+    from ..ops.fec.turbo_decoder_pallas2 import TILE, tile_width
 
     if os.environ.get("SRSLTE_FUSED_RX", "1") == "0":
         return None
@@ -160,9 +157,9 @@ def _fused_geometry(shape, plan: DlschPlan):
         return None
     impl = plan.decoder_impl
     if impl == "auto":
-        import jax
+        from ..backend import platform
 
-        if jax.default_backend() != "tpu":
+        if platform() != "gpu":
             return None
         interpret = False
     elif impl in ("pallas2", "pallas2_interpret"):
@@ -173,11 +170,9 @@ def _fused_geometry(shape, plan: DlschPlan):
         if _pick_window(k) is None:
             return None
     lanes_dim = shape[-2]
-    sub = int(os.environ.get("TURBO_SUB", 0)) or 8
-    lanes = int(os.environ.get("TURBO_LANES", 0)) or (
-        256 if lanes_dim % 256 == 0 else 128 if lanes_dim % 128 == 0 else 0)
-    if not lanes or lanes_dim % lanes:
-        return None
+    lanes = min(lanes_dim & -lanes_dim, TILE)
+    rest = int(np.prod(shape[:-2], dtype=np.int64)) * (lanes_dim // lanes)
+    sub = min(TILE // lanes, tile_width(rest * plan.segm.c))
     return lanes, sub, interpret
 
 
@@ -317,8 +312,7 @@ def _feed_group_tiles_v2(x, k: int, f: int, mem, rest: int, sub: int,
     codeword-ordered LLR array x [rest, lanes, G] into a
     [T, e_max+2, sub, lanes] source, then gather the decoder input tiles
     with the group's SHARED index tables (build_tile_plan_shared).
-    Returns (tg, {name: tiles}) — factored out so the feed can be
-    benchmarked in isolation (tools/microbench_feed.py)."""
+    Returns (tg, {name: tiles})."""
     import jax
     import jax.numpy as jnp
 
@@ -364,8 +358,7 @@ def _dlsch_decode_fused(llrs, plan: DlschPlan, lanes: int, sub: int,
 
     Default (SRSLTE_FEED=v1, the deployed path): per-slot row gathers
     from a flat [rest*r_len, lanes] source (v1 below). SRSLTE_FEED=v2
-    selects the round-5 shared-index restructuring kept here as a
-    measured cross-check:
+    selects a shared-index restructuring kept as a cross-check:
 
       1. RE extraction (grid path) as ONE minor-axis gather applying the
          full g_map, giving a codeword-ordered array per codeword.
@@ -379,17 +372,10 @@ def _dlsch_decode_fused(llrs, plan: DlschPlan, lanes: int, sub: int,
          their zero padding where longer members read data; whole
          [sub, lanes]-row gathers feed the kernel tiles.
 
-    v2 was built on the round-4 roofline's claim that v1's sub-tile row
-    gathers pay a 16x HBM read amplification; DIRECT profiling (round 5,
-    tools/microbench_feed.py + jax.profiler) shows v1's real index
-    tables have enough run structure that the whole v1 feed costs
-    ~1.8 ms in-context at the 20 MHz MIMO batch-256 operating point,
-    while v2's stack+transpose+row-block-gather pipeline costs ~2.7 ms —
-    so v1 stays the default and the roofline's feed term is corrected in
-    docs/BENCHMARKS.md. Both paths are behaviorally identical to the
-    classic de-rate-matching path (tests/test_fused_rx.py); reference
-    semantics mirrored: decode_tb_cb + srslte_crc checks
-    (lib/src/phy/phch/sch.c:307-437).
+    Neither has been timed on the GPU (PERF.md open questions). Both
+    paths are behaviorally identical to the classic de-rate-matching
+    path (tests/test_fused_rx.py); reference semantics mirrored:
+    decode_tb_cb + srslte_crc checks (lib/src/phy/phch/sch.c:307-437).
     """
     import os
 
@@ -528,19 +514,15 @@ def _dlsch_decode_fused(llrs, plan: DlschPlan, lanes: int, sub: int,
 def _dlsch_decode_fused_v1(llrs, plan: DlschPlan, lanes: int, sub: int,
                            interpret: bool, g_map=None, iters_out=None,
                            pos_major: bool = False):
-    """v1 fused feed (round 4) — the DEFAULT deployed path: per-slot
+    """v1 fused feed — the DEFAULT deployed path: per-slot
     single-[lanes]-row gathers from a flat [rest*r_len, lanes] source.
-    Round-5 profiling measured it at ~1.8 ms in-context (the real index
-    tables' run structure defeats the worst-case tile-amplification
-    model); the v2 restructuring above measured slower and is kept as a
-    cross-check. See _dlsch_decode_fused's docstring.
+    See _dlsch_decode_fused's docstring.
 
     ``pos_major``: llrs arrive as [*outer, r_len, lanes] (positions on
     the second-to-last axis, batch minor) — the layout the feed's
     source rows want, produced natively by the grid path's transposed
-    demodulator (models/pdsch.py). Skips the fused swapaxes whose
-    transposed writes were a profiled ~1.2 ms of demod-fusion bloat.
-    Requires the whole lane fold in one axis (folds == 1).
+    demodulator (models/pdsch.py). Skips a fused swapaxes with
+    transposed writes.
     """
     import jax.numpy as jnp
 
@@ -573,7 +555,7 @@ def _dlsch_decode_fused_v1(llrs, plan: DlschPlan, lanes: int, sub: int,
     # producers into every consumer — without this barrier the whole
     # upstream pipeline (equalize/demod, or the encoder in loopback
     # benches) is recomputed per gather. The transpose/pad still fuse
-    # into the gathers (measured free); only `x` is pinned.
+    # into the gathers; only `x` is pinned.
     import jax
 
     if pos_major:
@@ -713,7 +695,7 @@ def dlsch_decode(llrs, plan: DlschPlan, softbuffers=None, iters_out=None):
     with HARQ combining into ``softbuffers`` (list of per-CB arrays or
     None), batched turbo decode, CB CRC checks, reassembly, TB CRC.
 
-    On TPU with the NII Pallas decoder and no incoming HARQ state, the
+    On the GPU (the NII Pallas decoder) with no incoming HARQ state, the
     fused feed path (_dlsch_decode_fused) is used instead — identical
     results, one HBM materialization instead of six.
     """

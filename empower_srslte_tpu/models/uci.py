@@ -4,7 +4,7 @@
 Capability parity with lib/src/phy/phch/uci.c (RM (32,O) for PUSCH-borne
 CQI, RM (20,O) for PUCCH format 2, HARQ/SR bits) and cqi.c payload
 pack/unpack. Decoding is ML over all 2^O codewords as one matmul —
-at O <= 13 that is a [8192, 32] correlation, MXU-trivial.
+at O <= 13 that is a [8192, 32] correlation.
 """
 
 from __future__ import annotations
@@ -184,7 +184,7 @@ def ri_unpack(bits: np.ndarray, nof_bits: int = 1) -> int:
 
 # --- UCI on PUSCH (36.212 5.2.2.6-5.2.2.8; sch.c:550-985, uci.c:491-720) -----
 #
-# TPU-first layout: everything data-dependent is distilled into static
+# Static layout: everything data-dependent is distilled into static
 # per-grant index tables on the host (a permutation for the channel
 # interleaver, position vectors for RI/ACK), so the device path is pure
 # gathers/scatters around the existing turbo/RM kernels — the same design

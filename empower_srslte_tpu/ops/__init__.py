@@ -1,6 +1,6 @@
 """DSP compute kernels: OFDM, modem, scrambling, FEC, chest, MIMO, sync.
 
-TPU-native counterparts of the reference's per-function DSP modules under
+Batched counterparts of the reference's per-function DSP modules under
 lib/src/phy/ (dft/, modem/, scrambling/, fec/, ch_estimation/, mimo/,
 sync/). Every op is a batched, statically-shaped jnp/Pallas transform;
 spec tables are precomputed host-side in numpy and closed over as device

@@ -6,7 +6,7 @@ frequency interpolation and linear time interpolation with edge
 extrapolation (interpolate_pilots, chest_dl.c:365-446), plus noise /
 RSRP / RSSI estimators (chest_dl.c:268-361, 741-840).
 
-TPU-native design: pilot gathers and interpolation are static index maps
+Batched design: pilot gathers and interpolation are static index maps
 precomputed per (cell, sf_idx, port); everything runs batched over
 subframes and rx antennas as pure jnp ops under jit.
 """
@@ -81,9 +81,8 @@ def _ls_pilots(grid, plan):
     """LS pilot estimates h_p [..., P, M] = y(pilot) * conj(r).
 
     CRS pilots sit on a regular 6-subcarrier comb per row, so extraction
-    is a strided SLICE per pilot-symbol row — the take_along_axis
-    formulation is kept as a fallback but its lane-axis gather was a
-    measurable slice of the full-chain receiver on TPU.
+    is a strided SLICE per pilot-symbol row; the take_along_axis
+    formulation (a gather along the minor axis) is kept as a fallback.
     """
     re_idx = plan["re_idx"]
     syms = plan["syms"]
@@ -202,7 +201,7 @@ def chest_dl(grid, cell: Cell, sf_idx: int, port: int = 0,
         h_f = h0 * (1.0 - w) + h1 * w                # [..., P, nre]
 
     # time interpolation to all symbols: per-symbol static 2-term lerp
-    # (the einsum form lowered to tiny batched dot_generals on TPU)
+    # (elementwise, no tiny batched matrix products)
     return time_interp_apply(plan["tw"], h_f)
 
 

@@ -6,7 +6,7 @@ single-port MRC/MMSE (precoding.c:63-354), 2-port SFBC diversity
 rotation and CSI output (precoding.c:1121-1764), TX precoding dispatchers
 (precoding.c:1841-2103), layer map/demap (layermap.c:38-221).
 
-TPU-native design: per-RE 2x2 solves are closed-form einsum batches over
+Batched design: per-RE 2x2 solves are closed-form elementwise batches over
 the whole resource grid (mat.c:55-98's ZF/MMSE formulas vectorized), not
 per-RE SIMD loops.
 """
@@ -100,9 +100,8 @@ def eq_mux_2x2(y, h, noise_est=0.0, mmse: bool = True):
     weighting (precoding.c MMSE with csi).
     """
     # Explicit component arithmetic: everything stays an elementwise op
-    # over the RE lane axis. (The einsum formulation of the same math
-    # lowered to tiny batched dot_generals with layout transposes and was
-    # ~40x slower on TPU.)
+    # over the RE axis, where an einsum formulation of the same math
+    # lowers to tiny batched matrix products with layout transposes.
     x0, x1, csi0, csi1 = eq_mux_2x2_components(
         y[..., 0, :], y[..., 1, :], h[..., 0, 0, :], h[..., 0, 1, :],
         h[..., 1, 0, :], h[..., 1, 1, :], noise_est)
@@ -265,8 +264,8 @@ def precode_mux_2x2(layers, pmi: int = 0):
 def effective_channel_mux(h, pmi: int = 0):
     """Fold the TM4 precoder into the estimated per-port channel:
     h[..., rx, port, n] -> h_eff[..., rx, layer, n] = H W.
-    Expanded per matrix entry: the einsum form lowered to tiny batched
-    dot_generals with layout transposes on TPU."""
+    Expanded per matrix entry (elementwise, where the einsum form
+    lowers to tiny batched matrix products)."""
     w = codebook_2x2(pmi)
     return jnp.stack(
         [w[0, l] * h[..., 0, :] + w[1, l] * h[..., 1, :]

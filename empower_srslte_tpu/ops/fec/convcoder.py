@@ -4,7 +4,7 @@ Capability parity with lib/src/phy/fec/convcoder.c and viterbi.c (the
 port/SSE/AVX2/NEON soft Viterbi decoders behind PBCH and PDCCH,
 pbch.c:156,425 / pdcch.c:79,341).
 
-TPU-native design: the decoder is a batched max-log Viterbi — a 64-state
+Batched design: the decoder is a max-log Viterbi — a 64-state
 add-compare-select lax.scan with survivor decisions stored per step and a
 reverse traceback scan; tail-biting is handled with the standard
 wrap-around trick (decode the circularly-extended sequence, keep the
@@ -98,7 +98,7 @@ TRAIN_LEN = 40
 
 def viterbi_decode(llr, wrap: int = 1, train: int | None = TRAIN_LEN,
                    impl: str = "auto"):
-    """Batched tail-biting max-log Viterbi, TPU formulation.
+    """Batched tail-biting max-log Viterbi, plain-JAX formulation.
 
     llr [..., 3, K] soft values (positive <=> bit 0) -> bits [..., K].
     ``wrap``: number of extra circular passes prepended AND appended for
@@ -117,11 +117,8 @@ def viterbi_decode(llr, wrap: int = 1, train: int | None = TRAIN_LEN,
     EXCHANGE — each state carries its last <=64 decisions packed in
     int32 registers, selected between two statically-permuted copies per
     step — so there is no stored-decision array and no dynamic-gather
-    traceback. (A first version kept the reference's metric[:, ps] /
-    take_along_axis shape, viterbi37_port.c structure: its per-step
-    dynamic gathers cost ~0.7 ms each through this TPU runtime — 240 ms
-    per PDCCH blind-search batch, the costliest stage of the full ue_dl
-    chain.)
+    traceback (the reference's metric[:, ps] / take_along_axis shape,
+    viterbi37_port.c structure, needs a per-step dynamic gather).
 
     The scan runs in THREE segments, exploiting that registers never
     influence metrics (decisions are identical to a single full scan):
@@ -132,21 +129,23 @@ def viterbi_decode(llr, wrap: int = 1, train: int | None = TRAIN_LEN,
     branches but stops shifting new bits in (its decisions are unread
     too), so the middle decisions end the scan at fixed positions
     [0, K) and the register count is ceil(K/32) instead of
-    ceil((K+halo)/32). Measured ~40 % of the per-step work removed.
+    ceil((K+halo)/32).
     """
     ns, out, ps, pu, pout = _tables()
 
-    # On the TPU backend the VMEM-resident Pallas kernel
-    # (viterbi_pallas.py) runs the identical three-segment recursion
-    # ~2.2x faster (the scan pays ~21 us of per-op runtime overhead per
-    # trellis step); decisions are bit-identical (asserted in tests).
+    # On the GPU the Pallas kernel (viterbi_pallas.py) runs the same
+    # three-segment recursion in one launch instead of one loop step per
+    # trellis step; decisions are bit-identical (asserted in tests).
     # wrap == 1 is the only tail-biting configuration the kernel
     # implements (its halo is always circular); wrap=0 (terminated
     # input) and wrap>=2 stay on the scan path.
-    if impl == "auto" and wrap == 1 and jax.default_backend() == "tpu":
-        from .viterbi_pallas import viterbi_decode_pallas
+    if impl == "auto" and wrap == 1:
+        from ...backend import platform
 
-        return viterbi_decode_pallas(llr, train=train)
+        if platform() == "gpu":
+            from .viterbi_pallas import viterbi_decode_pallas
+
+            return viterbi_decode_pallas(llr, train=train)
 
     *lead, three, k = llr.shape
     b = int(np.prod(lead)) if lead else 1

@@ -4,13 +4,12 @@ precomputed index map, plus GF(2) matrices for tile-layout CRC checks.
 The reference's receive chain materializes, per code block, the
 de-rate-matched LLR buffer (rm_turbo.c:378-905 scatter-add into the
 softbuffer), which the decoder then re-reads through its own lane-layout
-tables (turbodecoder.c:263-271). A direct port of that staging to TPU
-makes every step a full-size HBM pass — pad-to-circular-buffer, inverse-
-map gather, constituent stream-split concats, time-major transpose, tile
-packing — and those passes, not arithmetic, dominated the round-3
-receiver profile (docs/BENCHMARKS.md).
+tables (turbodecoder.c:263-271). A direct port of that staging makes
+every step a full-size pass over device memory — pad-to-circular-buffer,
+inverse-map gather, constituent stream-split concats, time-major
+transpose, tile packing.
 
-TPU-native replacement: the composition
+Batched replacement: the composition
 
     codeword bit position -> circular-buffer position (36.212 5.1.4.1.2)
     -> sub-block deinterleave (Table 5.1.4-1) -> d-stream split with tail
@@ -27,7 +26,7 @@ is summed, reproducing the reference's soft-combining adds.
 
 CRC checks never leave the tile layout either: a CRC over GF(2) is a
 linear map, so the syndrome of the decoder's a-posteriori LLR tiles is
-one MXU contraction with a (row-permuted) parity matrix — including in
+one contraction with a (row-permuted) parity matrix — including in
 the *interleaved* domain, where the early-stop check runs without the
 per-iteration deinterleave gather (P_int = P[qpp_interleaver]).  The
 transport-block CRC24A across code blocks composes from per-CB local

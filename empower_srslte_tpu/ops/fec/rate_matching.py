@@ -150,7 +150,7 @@ class RateMatchTurbo:
         # The selection is the k0(rv) circle tiled to E: combining
         # repetitions = zero-pad to a whole number of circles, sum the
         # circle copies, then one static placement into the d domain —
-        # no runtime scatter (the TPU backend lowers scatters poorly).
+        # no runtime scatter.
         circle = _circle(self.k, self.f, rv, self.ncb)
         n = len(circle)
         reps = -(-e // n)

@@ -1,20 +1,21 @@
-"""Batched windowed max-log-MAP turbo decoder — the flagship TPU kernel.
+"""Batched windowed max-log-MAP turbo decoder.
 
 Capability parity with lib/src/phy/fec/turbodecoder*.c: the reference runs
 max-log-MAP with a beta backward sweep then an alpha+LLR forward sweep
 (turbodecoder_gen.c:59-198), SIMD lane-parallel windows with 40-step
 overlap training (turbodecoder_win.h:58,92) and periodic renormalization.
 
-TPU-native redesign (not a translation):
+Batched redesign (not a translation). On the GPU, ``impl="auto"`` runs
+the NII Pallas kernel (turbo_decoder_pallas2.py) through
+``decode_tiles``; the plain-JAX scan formulation below is the CPU path:
 
 * The unit of work is a *batch* of equal-size code blocks ``[B, 3, K+4]``;
-  throughput comes from batching, the TPU analog of the reference's
+  throughput comes from batching, the analog of the reference's
   pipeline threading (SURVEY.md section 2.6 P2/P3).
 * The trellis time axis is cut into W windows decoded in parallel with
-  O-step overlap training exactly like the reference's windowed scheme,
-  but windows ride the *lane* axis: the scan carry is an ``[8, B*W]``
-  tile — 8 trellis states on sublanes, batch x windows on lanes — which is
-  the native VPU register shape.
+  O-step overlap training exactly like the reference's windowed scheme;
+  windows ride the minor axis next to the batch: the scan carry is an
+  ``[8, B*W]`` array — 8 trellis states by batch x windows.
 * State-metric recursions are ``lax.scan``s with static-index gathers for
   the trellis wiring; every step renormalizes by the running max (f32, so
   the reference's every-4-step i16 saturation dance is unnecessary).
@@ -304,17 +305,14 @@ class TurboDecoder:
     iterations: int = 5
     window: int | None = None          # None = exact full-length sweeps
     overlap: int = DEFAULT_OVERLAP
-    #: "auto" = pallas on TPU / lax.scan elsewhere; "xla" = scan sweeps;
-    #: "pallas" = VMEM-resident TPU kernel (turbo_decoder_pallas.py);
-    #: "pallas_interpret" for CPU debugging.
+    #: "auto" = the NII Pallas kernel on the GPU, the lax.scan sweeps on
+    #: the CPU (backend.platform()); "xla" = scan sweeps; "pallas2" = the
+    #: NII kernel (turbo_decoder_pallas2.py); "pallas2_interpret" = the
+    #: same kernel in the Pallas interpreter (CPU tests).
     impl: str = "auto"
-    #: Metric dtype: "auto" = bfloat16 on the pallas path (1.6x faster,
-    #: ~0.05 dB BLER penalty — the same trade the reference makes with its
-    #: i16/i8 SIMD paths, demod_soft.c:39-45), float32 otherwise;
-    #: "float32"/"bfloat16" to force.
+    #: Metric dtype: "auto" = bfloat16 on the NII kernel path, float32 on
+    #: the scan path; "float32"/"bfloat16" to force.
     dtype: str = "auto"
-    #: NII windows interleaved per pallas program (0 = TURBO_WPP env or 1)
-    wpp: int = 0
 
     def _split_streams(self, d_llr):
         """d_llr[..., 3, K+4] -> per-constituent (sys1, par1, sys2t, par2).
@@ -356,13 +354,11 @@ class TurboDecoder:
         a-posteriori LLR tiles (llr_int row q <-> natural bit pi[q]), so
         no per-iteration deinterleave gather or layout change is needed
         (the reference checks CRCs between iterations at sch.c:382; here
-        the check is one MXU contraction, see ops/fec/derm_tiles.py).
+        the check is one contraction, see ops/fec/derm_tiles.py).
 
         Returns (llr_int [T, K, sub, lanes], n_iterations scalar int32);
         the natural-order LLRs are ``llr_int[:, qpp_deinterleaver(k)]``.
         """
-        import os
-
         import jax
         import jax.numpy as jnp
 
@@ -374,26 +370,16 @@ class TurboDecoder:
         pi = jnp.asarray(qpp_interleaver(k))
         t_tiles, _, sub, lanes = sys_t.shape
         dt = sys_t.dtype
-        # NOTE: group=32 measured BLER=1.0 in bf16 (metrics leave the
-        # renormalization-safe range between 32-step group boundaries);
-        # 16 is both the fastest measured and the numerically safe value
-        group = int(os.environ.get("TURBO_GROUP", 0)) or 16
-        wpp = self.wpp if self.wpp else \
-            int(os.environ.get("TURBO_WPP", 0)) or 1
-        if (k // l) % wpp:
-            wpp = 1
-        w_count = k // l
-        zst = jnp.zeros((t_tiles, w_count + 1, 8, sub, lanes), dt)
+        zst = jnp.zeros((t_tiles, k // l + 1, 8, sub, lanes), dt)
 
         dec = lambda u, p, ut, pt, a, bb, apr: map_decode_nii(
-            u, p, ut, pt, a, bb, l=l, lanes=lanes, group=group,
-            interpret=interpret, wpp=wpp, sub=sub, apr=apr)
+            u, p, ut, pt, a, bb, l=l, interpret=interpret, apr=apr)
 
         pinv = jnp.asarray(qpp_deinterleaver(k))
         # interleaved-domain systematic, computed once: constituent 2's
         # input rows are sys_int + ext1_int, with the sys+ext adds
-        # executed INSIDE the kernel (apr input) — the XLA-side adds
-        # were a profiled ~0.3-0.5 ms full-HBM pass per iteration
+        # executed INSIDE the kernel (apr input), saving a full pass
+        # over the LLR rows per half-iteration
         sys_int = sys_t[:, pi]
 
         def iteration(state, with_llr=True):
@@ -413,8 +399,7 @@ class TurboDecoder:
         if crc_check is None:
             # fixed iterations ride a lax.scan so XLA compiles ONE
             # iteration body (plus the final llr-emitting call) instead
-            # of unrolling `iters` copies — cuts cold-compile ~3x at
-            # equal steady-state throughput.
+            # of unrolling `iters` copies
             if iters > 1:
                 def body(st, _):
                     st, _ = iteration(st, with_llr=False)
@@ -440,13 +425,11 @@ class TurboDecoder:
 
     def _decode_nii(self, d_llr, iterations: int | None = None, crc=None,
                     interpret: bool = False):
-        """v2 fast path: NII windowed kernel in batch-tile-major layout
+        """NII kernel path in the batch-tile layout
         (turbo_decoder_pallas2.py). Same contract as ``decode``."""
-        import os
-
         import jax.numpy as jnp
 
-        from .turbo_decoder_pallas2 import from_tiles, to_tiles
+        from .turbo_decoder_pallas2 import from_tiles, tile_width, to_tiles
 
         k = self.k
         pinv = jnp.asarray(qpp_deinterleaver(k))
@@ -463,19 +446,13 @@ class TurboDecoder:
         par2_tm = tm(par2)
         sys2_tail_tm = tm(sys2_tail)
 
-        # folded-batch tile geometry: sub x lanes per tile. sub=8 with
-        # wide lanes measured fastest on v5e; the (16,128) native-bf16
-        # and (32,128) layouts are exposed via TURBO_SUB but measured
-        # 13% slower at equal elements (docs/BENCHMARKS.md roofline
-        # section) — the kernel is issue-bound, not layout-bound.
-        sub = int(os.environ.get("TURBO_SUB", 0)) or 8
-        lanes = int(os.environ.get("TURBO_LANES", 0)) \
-            or (256 if b >= sub * 256 else 128)
-        bp = (-b) % (sub * lanes)
+        # tile geometry from the batch: one row of up to TILE code blocks
+        lanes = tile_width(b)
+        bp = (-b) % lanes
         cp = (lambda x: jnp.pad(x, ((0, 0), (0, bp)))) if bp \
             else (lambda x: x)
         pad8 = lambda x: jnp.pad(x, ((0, 8 - x.shape[0]), (0, 0)))
-        tiles = lambda x: to_tiles(cp(x), lanes, sub)
+        tiles = lambda x: to_tiles(cp(x), lanes)
 
         crc_check = None
         if crc is not None:
@@ -522,17 +499,15 @@ class TurboDecoder:
 
         impl = self.impl
         if impl == "auto":
-            import jax
+            from ...backend import platform
 
-            impl = "pallas2" if jax.default_backend() == "tpu" else "xla"
-        if impl.startswith("pallas2") and self.window is not None:
+            impl = "pallas2" if platform() == "gpu" else "xla"
+        if impl not in ("xla", "pallas2", "pallas2_interpret"):
+            raise ValueError(f"unknown turbo decoder impl {impl!r}")
+        if impl != "xla" and self.window is not None:
             return self._decode_nii(d_llr, iterations=iterations, crc=crc,
                                     interpret=impl.endswith("interpret"))
-        use_pallas = impl.startswith("pallas") and self.window is not None
-        if self.dtype == "auto":
-            dt = jnp.bfloat16 if use_pallas else jnp.float32
-        else:
-            dt = jnp.dtype(self.dtype)
+        dt = jnp.float32 if self.dtype == "auto" else jnp.dtype(self.dtype)
         if d_llr.dtype != dt:
             d_llr = d_llr.astype(dt)
 
@@ -555,33 +530,10 @@ class TurboDecoder:
         init_a = jnp.asarray(init_a, sys1_tm.dtype)
         init_b = jnp.asarray(init_b, sys1_tm.dtype)
 
-        if use_pallas:
-            from .turbo_decoder_pallas import (
-                fold_lanes, map_decode_fused, pad_trellis_rows, unfold_lanes)
-
-            l, o = self.window, self.overlap
-            # folded layout needs the batch to be a multiple of 8*lanes;
-            # 256 lanes (2048 CBs/program) measured fastest per CB on v5e,
-            # bounded by the beta store VMEM footprint
-            lanes = 256 if b >= 2048 else 128
-            bp = (-b) % (8 * lanes)
-            colpad = (lambda x: jnp.pad(x, ((0, 0), (0, bp)))) if bp else (lambda x: x)
-            prep = lambda x, pad: fold_lanes(
-                pad_trellis_rows(colpad(x * 0.5), o, pad))
-            par1_pd = prep(par1_tm, 0.0)
-            par2_pd = prep(par2_tm, 0.0)
-            interp = impl.endswith("interpret")
-
         def run_map(lsa_pay, tail_sys, par_tm):
             lsa = jnp.concatenate([lsa_pay, tail_sys], axis=0)
             if self.window is None:
                 return _map_decode(lsa, par_tm, 3, init_a, init_b)
-            if use_pallas:
-                lsa_pd = prep(lsa, PAD_LLR)
-                lp_pd = par1_pd if par_tm is par1_tm else par2_pd
-                llr = unfold_lanes(map_decode_fused(
-                    lsa_pd, lp_pd, k, l, o, lanes=lanes, interpret=interp))
-                return llr[:, :b] if bp else llr
             return _windowed_map_decode(
                 lsa, par_tm, k, self.overlap, self.window, init_a, init_b)
 

@@ -2,9 +2,10 @@
 
 Capability parity with lib/src/phy/fec/turbocoder.c (srslte_tcod_encode).
 Constituent code: G(D) = [1, g1(D)/g0(D)] with g0 = 1 + D^2 + D^3 (feedback)
-and g1 = 1 + D + D^3. Both a vectorized numpy path (host golden/TX-table
-generation) and a batched lax.scan device path are provided; the trellis
-transition tables here are shared with the max-log-MAP decoder.
+and g1 = 1 + D + D^3. A vectorized numpy path (host golden/TX-table
+generation) and a batched GF(2) matrix-product device path are provided;
+the trellis transition tables here are shared with the max-log-MAP
+decoder.
 
 Output layout: three streams d0 (systematic), d1 (parity 1), d2 (parity 2),
 each of length K + 4 including the 36.212 5.1.3.2.2 tail-bit permutation.
@@ -117,152 +118,18 @@ def turbo_encode_np(u: np.ndarray) -> np.ndarray:
     return d
 
 
-def _rsc_encode_jnp(u):
-    """Device RSC: u[..., K] int32 -> (parity, x_tail[...,3], z_tail[...,3])."""
-    import jax
-    import jax.numpy as jnp
-
-    t = trellis()
-    nsu = jnp.asarray(t.next_state)   # [8, 2]
-    paru = jnp.asarray(t.parity)
-    tin = jnp.asarray(t.tail_input)   # [8]
-
-    def step(state, ui):
-        p = paru[state, ui]
-        return nsu[state, ui], p
-
-    init = jnp.zeros(u.shape[:-1], dtype=jnp.int32)
-    state, parity = jax.lax.scan(step, init, jnp.moveaxis(u, -1, 0))
-    parity = jnp.moveaxis(parity, 0, -1)
-
-    xt, zt = [], []
-    for _ in range(3):
-        ui = tin[state]
-        xt.append(ui)
-        zt.append(paru[state, ui])
-        state = nsu[state, ui]
-    return parity, jnp.stack(xt, axis=-1), jnp.stack(zt, axis=-1)
-
-
-def turbo_encode(u):
-    """jnp encode u[..., K] -> d[..., 3, K+4] int8; jit-compatible.
-
-    Used by the eNB TX path inside jitted subframe composition
-    (models/enb_dl.py); the scan carries a [batch] int32 state vector.
-    """
-    import jax.numpy as jnp
-
-    k = u.shape[-1]
-    pi = jnp.asarray(qpp_interleaver(k))
-    u = u.astype(jnp.int32)
-    z, x_t, z_t = _rsc_encode_jnp(u)
-    u2 = jnp.take(u, pi, axis=-1)
-    z2, x2_t, z2_t = _rsc_encode_jnp(u2)
-
-    d0 = jnp.concatenate(
-        [u, x_t[..., 0:1], z_t[..., 1:2], x2_t[..., 0:1], z2_t[..., 1:2]], axis=-1)
-    d1 = jnp.concatenate(
-        [z, z_t[..., 0:1], x_t[..., 2:3], z2_t[..., 0:1], x2_t[..., 2:3]], axis=-1)
-    d2 = jnp.concatenate(
-        [z2, x_t[..., 1:2], z_t[..., 2:3], x2_t[..., 1:2], z2_t[..., 2:3]], axis=-1)
-    return jnp.stack([d0, d1, d2], axis=-2).astype(jnp.int8)
-
-
-@functools.lru_cache(maxsize=1)
-def _byte_tables():
-    """Byte-stepped encoder tables: next_state8[8, 256] and packed parity
-    outputs par8[8, 256] (MSB = first bit's parity). One scan step then
-    consumes 8 input bits — 8x fewer sequential steps on device."""
-    t = trellis()
-    ns8 = np.zeros((NOF_STATES, 256), np.int32)
-    par8 = np.zeros((NOF_STATES, 256), np.int32)
-    for s in range(NOF_STATES):
-        for byte in range(256):
-            st = s
-            out = 0
-            for i in range(8):
-                u = (byte >> (7 - i)) & 1
-                out = (out << 1) | int(t.parity[st, u])
-                st = int(t.next_state[st, u])
-            ns8[s, byte] = st
-            par8[s, byte] = out
-    return ns8, par8
-
-
-def _rsc_encode_bytes_jnp(u):
-    """Byte-stepped RSC: u[..., K] (K % 8 == 0) -> (parity, x_tail, z_tail).
-
-    Equivalent to _rsc_encode_jnp but with a K/8-step scan over byte LUTs.
-    """
-    import jax
-    import jax.numpy as jnp
-
-    from ...utils.bits import jnp_pack_bits, jnp_unpack_bits
-
-    t = trellis()
-    ns8, par8 = _byte_tables()
-    ns8_j, par8_j = jnp.asarray(ns8), jnp.asarray(par8)
-    nsu = jnp.asarray(t.next_state)
-    paru = jnp.asarray(t.parity)
-    tin = jnp.asarray(t.tail_input)
-
-    k = u.shape[-1]
-    bytes_in = jnp_pack_bits(u.astype(jnp.uint8)).astype(jnp.int32)
-
-    def step(state, b):
-        p = par8_j[state, b]
-        return ns8_j[state, b], p
-
-    init = jnp.zeros(u.shape[:-1], dtype=jnp.int32)
-    state, pbytes = jax.lax.scan(step, init, jnp.moveaxis(bytes_in, -1, 0))
-    pbytes = jnp.moveaxis(pbytes, 0, -1).astype(jnp.uint8)
-    parity = jnp_unpack_bits(pbytes).astype(jnp.int32)[..., :k]
-
-    xt, zt = [], []
-    for _ in range(3):
-        ui = tin[state]
-        xt.append(ui)
-        zt.append(paru[state, ui])
-        state = nsu[state, ui]
-    return parity, jnp.stack(xt, axis=-1), jnp.stack(zt, axis=-1)
-
-
-def turbo_encode_fast(u):
-    """Byte-LUT device encoder (all valid CB sizes are multiples of 8)."""
-    import jax.numpy as jnp
-
-    k = u.shape[-1]
-    assert k % 8 == 0
-    pi = jnp.asarray(qpp_interleaver(k))
-    u = u.astype(jnp.int32)
-    z, x_t, z_t = _rsc_encode_bytes_jnp(u)
-    u2 = jnp.take(u, pi, axis=-1)
-    z2, x2_t, z2_t = _rsc_encode_bytes_jnp(u2)
-
-    d0 = jnp.concatenate(
-        [u, x_t[..., 0:1], z_t[..., 1:2], x2_t[..., 0:1], z2_t[..., 1:2]], axis=-1)
-    d1 = jnp.concatenate(
-        [z, z_t[..., 0:1], x_t[..., 2:3], z2_t[..., 0:1], x2_t[..., 2:3]], axis=-1)
-    d2 = jnp.concatenate(
-        [z2, x_t[..., 1:2], z_t[..., 2:3], x2_t[..., 1:2], z2_t[..., 2:3]], axis=-1)
-    return jnp.stack([d0, d1, d2], axis=-2).astype(jnp.int8)
-
-
-# --- MXU matmul encoder ------------------------------------------------------
+# --- GF(2) matrix-product encoder -------------------------------------------
 #
 # The RSC constituent encoder is LINEAR over GF(2) and time-invariant from
 # the zero state, so its parity stream is a Toeplitz generator matrix in
 # the parity impulse response h (periodic with period 7 = the order of the
 # 3-bit state-update matrix), and the final encoder state is a [K, 3]
 # linear map with period-7 columns. Encoding therefore runs as ONE int8
-# MXU matmul per constituent — with the QPP interleaver folded into the
-# second constituent's matrix as a row permutation — instead of a K/8-step
-# lax.scan of per-byte LUT gathers (which cost ~300 ms per rx_20mimo
-# batch on TPU: tiny per-step tensors never fill the VPU and every scan
-# step pays fixed overhead). The reference reaches the same goal with
-# byte-LUT tables (turbocoder.c); the MXU formulation is the TPU-native
-# equivalent. Exactness: 0/1 operands accumulate in int32, mod 2 at the
-# end.
+# matrix product per constituent (int8 tensor cores on the GPU) — with the
+# QPP interleaver folded into the second constituent's matrix as a row
+# permutation — instead of a K-step serial scan over the trellis. The
+# reference reaches the same goal with byte-LUT tables (turbocoder.c).
+# Exactness: 0/1 operands accumulate in int32, mod 2 at the end.
 
 
 @functools.lru_cache(maxsize=32)
@@ -315,15 +182,19 @@ def _rsc_encode_mm_jnp(u, gz_j, fs_j, tmat_j):
 
     acc = jnp.matmul(u, gz_j, preferred_element_type=jnp.int32)
     z = (acc & 1).astype(jnp.int8)
-    s_bits = (jnp.matmul(u, fs_j, preferred_element_type=jnp.int32)
-              & 1).astype(jnp.int8)
-    tails = (jnp.matmul(s_bits, tmat_j, preferred_element_type=jnp.int32)
-             & 1).astype(jnp.int8)
+    s_bits = jnp.matmul(u, fs_j, preferred_element_type=jnp.int32) & 1
+    # the [3, 6] termination map as elementwise products: an int8 matrix
+    # product with a contraction of 3 returns wrong sums on the GPU
+    tails = (jnp.sum(s_bits[..., :, None] * tmat_j.astype(jnp.int32),
+                     axis=-2) & 1).astype(jnp.int8)
     return z, tails[..., 0:3], tails[..., 3:6]
 
 
-def turbo_encode_mm(u):
-    """MXU-matmul device encoder: u [..., K] -> d [..., 3, K+4] int8."""
+def turbo_encode(u):
+    """Device encoder: u [..., K] -> d [..., 3, K+4] int8; jit-compatible.
+
+    Used by the eNB TX path inside jitted subframe composition
+    (models/sch.py dlsch_encode)."""
     import jax.numpy as jnp
 
     k = u.shape[-1]
@@ -351,14 +222,3 @@ def turbo_encode_mm(u):
         [z2, x_t[..., 1:2], z_t[..., 2:3], x2_t[..., 1:2], z2_t[..., 2:3]],
         axis=-1)
     return jnp.stack([d0, d1, d2], axis=-2).astype(jnp.int8)
-
-
-def turbo_encode_auto(u):
-    """Backend dispatch: MXU matmul encoder on TPU (the [K, K] generator
-    would be ~100 GFLOP per rx batch on the CPU test backend, where the
-    byte-LUT scan remains the right shape)."""
-    import jax
-
-    if jax.default_backend() == "tpu":
-        return turbo_encode_mm(u)
-    return turbo_encode_fast(u)

@@ -72,9 +72,8 @@ def modulate(bits, mod: Mod):
 
     Equivalent of srslte_mod_modulate_bytes (mod.c:157), but closed-form:
     every LTE constellation's I/Q is a (bi)linear function of its bits
-    (36.211 7.1 tables), so modulation is pure elementwise arithmetic —
-    a table gather over the symbol axis was the costliest stage of the
-    TX bench on TPU (lane-axis gathers from a tiny LUT don't vectorize).
+    (36.211 7.1 tables), so modulation is pure elementwise arithmetic
+    instead of a table gather over the symbol axis.
     """
     import jax
 

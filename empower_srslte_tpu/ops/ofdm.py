@@ -5,12 +5,11 @@ srslte_ofdm_tx_sf): per-slot FFTs with unequal first-symbol CP, DC
 subcarrier skipping (the reference's dft_plan_set_dc, ofdm.c:121,409-415),
 and optional +-0.5-subcarrier frequency shift (ofdm.c:363-381).
 
-TPU-native design: the reference batches 7 symbols per FFTW "guru" call
+Batched design: the reference batches 7 symbols per FFTW "guru" call
 (dft_fftw.c:141); here the whole subframe across the full batch is one
-transform over a [batch, nsymb_sf, fft] tensor — on TPU the MXU matmul
-FFT (ops/fft_mm.py; XLA's native c64 FFT lowering measures ~8x its HBM
-bound), elsewhere ``jnp.fft``. CP handling is per-symbol static slices
-(RX) / concatenation of slices (TX) — no dynamic shapes under jit.
+``jnp.fft`` transform (cuFFT on the GPU) over a [batch, nsymb_sf, fft]
+tensor. CP handling is per-symbol static slices (RX) / concatenation of
+slices (TX) — no dynamic shapes under jit.
 """
 
 from __future__ import annotations
@@ -19,26 +18,13 @@ import functools
 
 import numpy as np
 
-import jax
 import jax.numpy as jnp
 
 from ..utils.cell import CP, Cell
-from .fft_mm import fft_c
-
-
-#: Force the MXU matmul FFT off-TPU too (the multichip dryrun sets this
-#: so the sharded CPU-mesh program compiles the exact TPU formulation).
-#: Read at TRACE time: flipping it after a downstream jitted program has
-#: been traced/cached has no effect on that program — set it before the
-#: first call and restore in a try/finally (as dryrun_multichip does).
-FORCE_MXU_FFT = False
 
 
 def _sf_fft(sym, inverse: bool = False):
-    """Whole-subframe transform along the last axis: MXU matmul FFT on
-    TPU, jnp.fft elsewhere (identical to ~1e-7 relative, see fft_mm)."""
-    if FORCE_MXU_FFT or jax.default_backend() == "tpu":
-        return fft_c(sym, inverse=inverse)
+    """Whole-subframe transform along the last axis."""
     return jnp.fft.ifft(sym, axis=-1) if inverse \
         else jnp.fft.fft(sym, axis=-1)
 
@@ -125,10 +111,9 @@ def _grid_to_bins(nof_prb: int, dc_empty: bool = True,
 def _cp_strip(samples, starts: np.ndarray, fft: int):
     """CP removal as per-symbol STATIC slices + stack.
 
-    The index-table gather formulation (samples[..., idx] with idx
-    [nsymb, fft]) is a lane-axis gather — ~4 ms per 20 MHz 2-antenna
-    batch-256 subframe through this TPU runtime. Contiguous static
-    slices lower to plain copies and measure ~5x cheaper.
+    Contiguous static slices lower to plain copies, where the
+    index-table formulation (samples[..., idx] with idx [nsymb, fft])
+    is a gather along the minor axis.
     """
     return jnp.stack([samples[..., int(s) : int(s) + fft] for s in starts],
                      axis=-2)                               # [..., nsymb, fft]

@@ -7,10 +7,10 @@ sss.c:132-152), CFO estimation from PSS half-symbol correlation
 (pss.c:614-627) and CP autocorrelation (cp.c:66), CFO correction by
 complex-exponential multiply (cfo.c:97).
 
-TPU-native design: PSS search is one batched FFT convolution over
+Batched design: PSS search is one batched FFT convolution over
 subframe windows; SSS detection is a single [hypotheses x 62] matmul over
-all 336 (N_id_1, subframe) candidates — MXU-friendly instead of the
-reference's three-stage partial correlations.
+all 336 (N_id_1, subframe) candidates instead of the reference's
+three-stage partial correlations.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import functools
 
 import numpy as np
 
+import jax
 import jax.numpy as jnp
 
 from ..utils.cell import CP as _CP, Cell
@@ -190,11 +191,13 @@ def sss_detect(sss_re, n_id_2: int):
     """Detect N_id_1 and frame half from the equalized 62-RE SSS symbol.
 
     sss_re [..., 62] -> (n_id_1 [...], sf_is_5 [...], metric [...]).
-    One correlation matmul against all 336 hypotheses (the MXU-shaped
-    replacement for find_sss.c's partial correlation stages).
+    One correlation matmul against all 336 hypotheses (replacing
+    find_sss.c's partial correlation stages), at full float32 precision
+    (a GPU would otherwise take it in TF32).
     """
     table = jnp.asarray(_sss_table(n_id_2))              # [336, 62]
-    corr = jnp.einsum("...k,hk->...h", sss_re, jnp.conj(table))
+    corr = jnp.einsum("...k,hk->...h", sss_re, jnp.conj(table),
+                      precision=jax.lax.Precision.HIGHEST)
     mag = jnp.abs(corr)
     best = jnp.argmax(mag, axis=-1)
     power = jnp.sum(jnp.abs(sss_re) ** 2, axis=-1) * SYNC_LEN

@@ -1,13 +1,12 @@
-"""Multi-chip sharding: device meshes and distributed PHY pipelines.
+"""Multi-device sharding: device meshes and distributed PHY pipelines.
 
-The TPU-native replacement for the reference's process/thread concurrency
+The batched replacement for the reference's process/thread concurrency
 (SURVEY.md section 2.6): subframe batches ride a data-parallel mesh axis
 (the analog of the reference's worker pipeline, thread_pool.h:46),
 component carriers ride a carrier axis (the analog of one-process-per-cell,
 radio_multi.cc), and the turbo decoder's trellis can be sequence-sharded
-across chips with halo exchange of the overlap training regions via
-lax.ppermute — the ICI-collective analog of turbodecoder_win.h's
-lane-overlap scheme.
+across devices with boundary-metric exchange via lax.ppermute — the
+collective analog of turbodecoder_win.h's lane-overlap scheme.
 """
 
 from .dist import init_distributed, make_global_mesh

@@ -1,20 +1,20 @@
-"""Multi-host (multi-process) distributed backend: the DCN axis.
+"""Multi-host (multi-process) distributed backend: the host axis.
 
 The reference scales past one machine by running one process per cell
 and wiring them at the application layer (lib/src/radio/radio_multi.cc
 one-PHY-per-carrier; srsenb/srsepc as separate hosts over S1). The
-TPU-native equivalent is a ``host`` mesh axis in front of the
+batched equivalent is a ``host`` mesh axis in front of the
 single-process (carrier, sf) axes: ``jax.distributed`` forms the
-process group, every process contributes its local chips, and XLA
-routes collectives that cross the host axis over DCN while
-carrier/sf-axis collectives stay on ICI.
+process group, every process contributes its local devices, and
+collectives that cross the host axis go over the network between hosts
+while carrier/sf-axis collectives stay within one host.
 
 Validation without multi-host hardware: ``tools/multihost_dryrun.py``
 launches N real OS processes on virtual CPU devices, builds the global
 (host, carrier, sf) mesh here, and runs (a) the full no-genie ue_dl
 chain sharded over all three axes with a cross-host psum and (b) the
 trellis-sharded NII turbo decode with its ppermute boundary exchange
-crossing the host axis — the DCN analog of the ICI evidence the
+crossing the host axis — the cross-process analog of the evidence the
 single-process dryrun provides.
 """
 
@@ -32,8 +32,8 @@ def init_distributed(coordinator_address: str | None = None,
                      local_device_ids=None) -> None:
     """Join the process group (jax.distributed.initialize passthrough).
 
-    On real multi-host TPU pods the arguments are inferred from the
-    environment; on the CPU dryrun they are passed explicitly.
+    Pass the coordinator address, process count and process id
+    explicitly (the CPU dryrun does).
     """
     kwargs = {}
     if coordinator_address is not None:
@@ -51,9 +51,9 @@ def make_global_mesh(carriers: int = 1) -> Mesh:
     """Build the (host, carrier, sf) mesh over every process's devices.
 
     The leading ``host`` axis maps 1:1 onto processes (asserted), so a
-    collective over 'host' is by construction a cross-process (DCN)
+    collective over 'host' is by construction a cross-process
     collective and collectives over 'carrier'/'sf' stay within one
-    process's chips (ICI).
+    process's devices.
     """
     devs = sorted(jax.devices(), key=lambda d: (d.process_index, d.id))
     n_host = jax.process_count()

@@ -1,8 +1,9 @@
-"""Sequence-parallel turbo decoding: the trellis sharded across chips.
+"""Sequence-parallel turbo decoding: the trellis sharded across cards.
 
-The TPU-native scale-out of the reference's windowed turbo decoder
-(lib/src/phy/fec/turbodecoder_win.h): on one chip, windows ride SIMD
-lanes; across chips, the trellis is cut into per-device window chunks.
+The scale-out of the reference's windowed turbo decoder
+(lib/src/phy/fec/turbodecoder_win.h): on one card, windows run as
+parallel blocks; across cards, the trellis is cut into per-device window
+chunks.
 
 Two implementations:
 
@@ -15,15 +16,15 @@ Two implementations:
   single chip passes between adjacent windows, so the sharded decode is
   BIT-IDENTICAL to the single-chip kernel. The QPP interleaver is a
   global permutation, so each half-iteration's extrinsics are shared
-  via ``all_gather`` (rate 1/1 of the extrinsic volume — the ICI-bound
-  collective of this design).
+  via ``all_gather`` (rate 1/1 of the extrinsic volume — the
+  interconnect-bound collective of this design).
 * ``sp_turbo_decode`` — the original scan-decoder formulation with
   40-step overlap retraining halos, kept as a cross-check (it shares no
   kernel code with the NII path and validates the same sharding
   topology with reference overlap-training semantics).
 
-This is the "turbo-decoder extrinsic LLR halos via ICI collectives"
-design from BASELINE.json, implemented with shard_map over a mesh axis.
+This is the "turbo-decoder extrinsic LLR halos via collectives" design
+from BASELINE.json, implemented with shard_map over a mesh axis.
 """
 
 from __future__ import annotations
@@ -45,9 +46,9 @@ from ..ops.fec.turbo_decoder import (
 
 
 def sp_turbo_decode_nii(d_llr, k: int, mesh, axis: str = "sf",
-                        iterations: int = 5, sub: int = 8,
+                        iterations: int = 5, sub: int = 1,
                         lanes: int | None = None,
-                        interpret: bool | None = None):
+                        interpret: bool = False):
     """Trellis-sharded decode with the deployed NII Pallas kernel.
 
     d_llr [..., 3, K+4] -> (bits [..., K], llr [..., K]), replicated.
@@ -58,11 +59,11 @@ def sp_turbo_decode_nii(d_llr, k: int, mesh, axis: str = "sf",
     at equal (window, sub, lanes) geometry — asserted in
     tests/test_parallel.py and the driver dryrun.
 
-    ``interpret`` defaults to True off-TPU (the dryrun's CPU mesh runs
-    the same kernel code in interpreter mode).
+    ``interpret`` runs the kernel in the Pallas interpreter (tests on
+    a virtual CPU mesh); on GPUs the compiled kernel runs per shard.
     """
     from ..ops.fec.turbo_decoder_pallas2 import (from_tiles, map_decode_nii,
-                                                 to_tiles)
+                                                 tile_width, to_tiles)
 
     n = mesh.shape[axis]
     assert k % n == 0, (k, n)
@@ -70,8 +71,6 @@ def sp_turbo_decode_nii(d_llr, k: int, mesh, axis: str = "sf",
     l = _pick_window(chunk, 16)
     assert chunk % l == 0
     n_loc = chunk // l                      # windows per shard
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
 
     dec = TurboDecoder(k=k)
     sys1, par1, sys2t, par2 = dec._split_streams(
@@ -79,9 +78,7 @@ def sp_turbo_decode_nii(d_llr, k: int, mesh, axis: str = "sf",
     lead = sys1.shape[:-1]
     b = int(np.prod(lead)) if lead else 1
     if lanes is None:
-        lanes = 1
-        while lanes < 256 and sub * lanes * 2 <= b:
-            lanes *= 2
+        lanes = tile_width(-(-b // sub))
     tile = sub * lanes
     bp = (-b) % tile
     tm = lambda x: jnp.moveaxis(x.reshape(b, x.shape[-1]), -1, 0)
@@ -125,8 +122,8 @@ def sp_turbo_decode_nii(d_llr, k: int, mesh, axis: str = "sf",
             b_st = jnp.concatenate([b_raw, ring(b_raw[:, :1], False)],
                                    axis=1)
             ext, a_next, b_next = map_decode_nii(
-                u, p, ut, pt, a_st, b_st, l=l, lanes=lanes, sub=sub,
-                apr=apr, bounds=bounds1, interpret=interpret)
+                u, p, ut, pt, a_st, b_st, l=l, apr=apr, bounds=bounds1,
+                interpret=interpret)
             # carry the RAW per-window outputs (map_decode_nii embeds
             # them at +1 / 0 in its single-chip slot arrays)
             return ext, a_next[:, 1:], b_next[:, :-1]

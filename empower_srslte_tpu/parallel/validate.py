@@ -2,7 +2,7 @@
 multi-process (multi-host) dryrun.
 
 ``build_uedl_mini`` returns the complete no-genie UE downlink chain —
-time samples -> OFDM FFT (MXU matmul formulation) -> LS channel
+time samples -> OFDM FFT -> LS channel
 estimation off the CRS -> pilot noise estimate -> PCFICH decode ->
 blind-candidate PDCCH (Viterbi + CRC16-RNTI) -> PDSCH decode with the
 estimated channel — as a per-shard local step suitable for shard_map

@@ -8,8 +8,8 @@ Capability parity with the reference's RF stack:
 * Device registry + auto-probe open (rf_imp.c:103-126: try UHD, then
   bladeRF, then Soapy until one opens) — here ``register_device`` +
   ``rf_open`` probing "file", "net", "stream" backends plus any plugin
-  the deployment registers (hardware SDRs are out of scope on a TPU
-  host; the IQ-file/UDP modes are the reference's own hardware-free
+  the deployment registers (hardware SDRs are out of scope on an
+  accelerator host; the IQ-file/UDP modes are the reference's own hardware-free
   test path, ue_sync.c:675-707).
 * ``srslte::radio`` (lib/src/radio/radio.cc) — tx/rx in units of
   samples with monotonically advancing timestamps, timed TX with
@@ -186,7 +186,7 @@ class NetRfDevice(RfDevice):
 
 class StreamRfDevice(RfDevice):
     """Native SPSC-ring device (runtime.stream.SampleStream producers):
-    the double-buffered host ingest path feeding the TPU."""
+    the double-buffered host ingest path feeding the accelerator."""
 
     name = "stream"
 

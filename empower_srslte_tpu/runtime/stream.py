@@ -4,7 +4,7 @@ The host-side continuous-RX pipeline (the reference's srslte::radio
 rx_now + ringbuffer.c + io/ streaming, re-designed as a native
 producer thread feeding batched device transfers): a C++ lock-free SPSC
 ring buffer (native/ring_buffer.cpp) with file or UDP producers, read in
-subframe-batch chunks for the TPU pipeline. Builds on demand with make;
+subframe-batch chunks for the device pipeline. Builds on demand with make;
 falls back to the pure-Python runtime/io.py when no toolchain exists.
 """
 

@@ -57,7 +57,7 @@ class MmeS1ap:
     mme: object
     mcc: str = "001"
     mnc: str = "01"
-    mme_name: str = "tpu-mme"
+    mme_name: str = "srs-mme"
     next_mme_ue_id: int = 1
     ue_ids: dict = field(default_factory=dict)    # enb_ue_id -> mme_ue_id
     enbs: list = field(default_factory=list)
@@ -341,7 +341,7 @@ class EnbS1ap:
     tac: int = 7
     cell_id: int = 0x1A2D001
     enb_id: int = 0x19B
-    enb_name: str = "tpu-enb"
+    enb_name: str = "srs-enb"
     next_enb_ue_id: int = 1
     setup_done: bool = False
     events: list = field(default_factory=list)

@@ -1,7 +1,7 @@
 """Bit pack/unpack helpers (host numpy and device jnp).
 
 Capability parity with lib/src/phy/utils/bit.c (srslte_bit_pack/unpack and
-the bit interleaver). On TPU the data path keeps bits as int8 0/1 tensors;
+the bit interleaver). On the device the data path keeps bits as int8 0/1 tensors;
 byte packing happens only at host boundaries (transport-block I/O, file
 sinks), so these are thin vectorized wrappers rather than a port of the
 word-at-a-time C routines.

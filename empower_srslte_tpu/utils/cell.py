@@ -4,7 +4,7 @@ Capability parity with the reference's cell struct and dimensioning helpers
 (lib/include/srslte/phy/common/phy_common.h, lib/src/phy/common/phy_common.c):
 ``srslte_cell_t``, ``srslte_symbol_sz``, CP lengths, subframe sample counts,
 resource-grid geometry. Here the cell is a frozen, hashable dataclass so it
-can key ``jax.jit`` compilation caches — the TPU analog of the reference's
+can key ``jax.jit`` compilation caches — the batched analog of the reference's
 plan-per-configuration design (lib/src/phy/dft/dft_fftw.c:76 replan-on-size).
 
 All numerology is 3GPP TS 36.211 Rel-8 FDD. Everything is computed from
@@ -111,7 +111,7 @@ def SF_RE_LEN(nof_prb: int, cp: CP = CP.NORM) -> int:
 class Cell:
     """Static LTE cell configuration.
 
-    The TPU-native equivalent of ``srslte_cell_t``
+    The batched equivalent of ``srslte_cell_t``
     (lib/include/srslte/phy/common/phy_common.h). Frozen + hashable so a
     ``Cell`` can be a static argument to jitted pipelines; every derived
     dimension below is a plain Python int available at trace time.

@@ -1,11 +1,12 @@
 """LTE CRC computation (36.212 5.1.1) as GF(2) linear algebra.
 
 Capability parity with lib/src/phy/fec/crc.c (CRC8/16/24A/24B via byte LUT).
-TPU-native redesign: LTE CRCs use a zero initial register and no output
+Batched redesign: LTE CRCs use a zero initial register and no output
 inversion, so the CRC is a *linear* map over GF(2). For each message length
 K we precompute the parity matrix H[K, L] with H[i] = x^(K-1-i+L) mod g(x);
-then crc(bits) = (bits @ H) mod 2 — a single f32 matmul on the MXU, exact
-because row sums stay far below 2^24. This turns the reference's per-CB
+then crc(bits) = (bits @ H) mod 2 — a single f32 matmul, exact because
+its 0/1 operands are exact in any precision (TF32 included) and row sums
+stay far below 2^24. This turns the reference's per-CB
 early-stop CRC check inside the turbo iteration loop (lib/src/phy/phch/
 sch.c:382) into a fully batched device op with no host sync.
 

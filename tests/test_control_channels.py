@@ -324,9 +324,9 @@ class TestPdcchBlindBits:
 
 class TestViterbiPallas:
     def test_kernel_matches_scan(self, rng):
-        """The Pallas Viterbi kernel (the TPU auto-dispatch path) must be
+        """The Pallas Viterbi kernel (the GPU auto-dispatch path) must be
         decision-identical to the XLA-scan formulation — same
-        three-segment recursion, state-unrolled in VMEM."""
+        three-segment recursion, state-unrolled in registers."""
         from empower_srslte_tpu.ops.fec.convcoder import (conv_encode_np,
                                                           viterbi_decode)
         from empower_srslte_tpu.ops.fec.viterbi_pallas import (
@@ -339,6 +339,6 @@ class TestViterbiPallas:
                    ).astype(np.float32)
             ref = np.asarray(viterbi_decode(jnp.asarray(llr), impl="scan"))
             got = np.asarray(viterbi_decode_pallas(
-                jnp.asarray(llr), interpret=True, sub=8, lanes=8))
+                jnp.asarray(llr), interpret=True))
             assert np.array_equal(got, ref), k
             assert np.mean(ref != u) < 0.01

@@ -103,11 +103,11 @@ class TestGf2Machinery:
 
 
 @pytest.fixture
-def tiny_tiles(monkeypatch):
-    """Interpret-mode geometry: tiny lanes so the Pallas interpreter
-    (which emulates every element in Python) stays fast."""
-    monkeypatch.setenv("TURBO_SUB", "8")
-    monkeypatch.setenv("TURBO_LANES", "2")
+def tiny_tiles():
+    """Interpret-mode geometry: the dispatch sizes the kernel tile to the
+    test batch (sch._fused_geometry), so the Pallas interpreter (which
+    emulates every element in Python) stays fast; direct calls pass
+    lanes=2, sub=8."""
 
 
 def _run_both(plan_fast, plan_ref, llrs):

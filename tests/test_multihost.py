@@ -1,11 +1,11 @@
-"""Multi-process (multi-host / DCN axis) validation.
+"""Multi-process (multi-host / host axis) validation.
 
 Launches tools/multihost_dryrun.py: N real OS processes joined via
 jax.distributed over virtual CPU devices, the global (host, carrier,
 sf) mesh, the full no-genie ue_dl chain sharded over all three axes
 with a cross-host psum, and the trellis-sharded NII turbo decode whose
 ppermute boundary exchange crosses the process boundary. This is the
-"1 chip -> 1 host -> N hosts" structural evidence from BASELINE
+"1 card -> 1 host -> N hosts" structural evidence from BASELINE
 (SURVEY.md section 2.7 / section 7 stage 10) validated without
 multi-host hardware.
 """

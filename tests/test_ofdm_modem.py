@@ -101,32 +101,3 @@ class TestScrambling:
         llr_scrambled = (1.0 - 2.0 * scrambled).astype(np.float32)
         llr = np.asarray(descramble_llrs(jnp.asarray(llr_scrambled), 77))
         assert np.array_equal((llr < 0).astype(np.int8), bits)
-
-
-class TestFftMxu:
-    """The MXU matmul FFT (ops/fft_mm.py) must match jnp.fft to f32
-    roundoff for every LTE size — it silently replaces the native FFT
-    lowering for all OFDM on the TPU backend."""
-
-    @pytest.mark.parametrize(
-        "n", [128, 256, 384, 512, 768, 1024, 1536, 2048])
-    def test_matches_numpy_fft(self, n, rng):
-        from empower_srslte_tpu.ops.fft_mm import fft_mxu
-
-        x = (rng.normal(size=(3, n)) + 1j * rng.normal(size=(3, n))
-             ).astype(np.complex64)
-        for inverse in (False, True):
-            ref = np.fft.ifft(x) if inverse else np.fft.fft(x)
-            re, im = fft_mxu(jnp.asarray(np.real(x)), jnp.asarray(np.imag(x)),
-                             inverse=inverse)
-            got = np.asarray(re) + 1j * np.asarray(im)
-            scale = np.max(np.abs(ref))
-            assert np.max(np.abs(got - ref)) / scale < 1e-5
-
-    def test_leading_batch_dims(self, rng):
-        from empower_srslte_tpu.ops.fft_mm import fft_c
-
-        x = (rng.normal(size=(2, 3, 4, 512)) + 1j * rng.normal(size=(2, 3, 4, 512))
-             ).astype(np.complex64)
-        got = np.asarray(fft_c(jnp.asarray(x)))
-        np.testing.assert_allclose(got, np.fft.fft(x), rtol=0, atol=2e-3)

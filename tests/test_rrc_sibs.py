@@ -185,8 +185,8 @@ SIB8_BITS = ("011111000100100011010001010110011110001001101010011111001010101000
              "100010011001000110010001001100010010001101001010101111001101101010"
              "11010101100110100010101010000010101110111011101111001100110011001101")
 
-SIB9_VAL = {"hnb_name": b"tpu-1"}
-SIB9_BITS = "010001000111010001110000011101010010110100110001"
+SIB9_VAL = {"hnb_name": b"srs-1"}
+SIB9_BITS = "010001000111001101110010011100110010110100110001"
 
 SIB13_VAL = {
     "mbsfn_area_info_list": [{

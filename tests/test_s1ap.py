@@ -28,12 +28,12 @@ class TestCodecs:
         assert S.dec_tai(ies[S.IE_TAI]) == ("310", "410", 5)
 
     def test_s1_setup_roundtrip(self):
-        pdu = S.pack_s1_setup_request("001", "01", 0x19B, "tpu-enb", 7)
+        pdu = S.pack_s1_setup_request("001", "01", 0x19B, "srs-enb", 7)
         kind, proc, ies = S.unpack_pdu(pdu)
         assert proc == S.PROC_S1_SETUP
         req = S.unpack_s1_setup_request(ies)
         assert req == {"mcc": "001", "mnc": "01", "enb_id": 0x19B,
-                       "enb_name": "tpu-enb"}
+                       "enb_name": "srs-enb"}
 
     def test_initial_context_setup_roundtrip(self):
         k_enb = bytes(range(32))
@@ -112,7 +112,7 @@ class TestProcedures:
         assert ue.nas.attached and ue.drbs == [1]
         assert "initial_ctx_setup_request" in mme_s1.events
         assert "initial_ctx_setup_complete" in mme_s1.events
-        assert "s1_setup_tpu-enb" in mme_s1.events
+        assert "s1_setup_srs-enb" in mme_s1.events
 
     def test_attach_over_socket_s1ap(self):
         from empower_srslte_tpu.rrc.procedures import EnbRrc, UeRrc

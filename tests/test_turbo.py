@@ -168,16 +168,9 @@ class TestDecoder:
 
 
 class TestNiiKernel:
-    """v2 fast path (turbo_decoder_pallas2): NII windows, fused
-    extrinsics, tile-major layout — validated via the pallas interpreter."""
-
-    @pytest.fixture(autouse=True)
-    def _tiny_tiles(self, monkeypatch):
-        # the interpreter emulates every tile element in Python: size the
-        # tile to the actual test batch instead of padding to the
-        # hardware (8, 128) vreg — was 98% of this module's wall time
-        monkeypatch.setenv("TURBO_SUB", "8")
-        monkeypatch.setenv("TURBO_LANES", "1")
+    """NII kernel path (turbo_decoder_pallas2): NII windows, fused
+    extrinsics, tile-major layout — validated via the pallas interpreter
+    (the tile width follows the test batch)."""
 
     def _awgn(self, rng, k, batch, ebn0_db):
         u = rng.integers(0, 2, size=(batch, k)).astype(np.int8)

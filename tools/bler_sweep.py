@@ -2,7 +2,7 @@
 
 Produces the waterfall curve for a CB size; the reference's equivalent
 operating point is turbodecoder_test at -e <snr> (its CTest registrations
-sweep sizes and SNRs). Run on CPU or TPU:
+sweep sizes and SNRs). Runs on the GPU (JAX_PLATFORMS=cpu for the CPU):
 
   python tools/bler_sweep.py [k] [batch_per_point] [int8]
 
@@ -27,8 +27,6 @@ def main():
     k = int(sys.argv[1]) if len(sys.argv) > 1 else 1024
     batch = int(sys.argv[2]) if len(sys.argv) > 2 else 64
     int8 = len(sys.argv) > 3 and sys.argv[3] == "int8"
-    if jax.default_backend() != "tpu":
-        jax.config.update("jax_platforms", "cpu")
 
     rng = np.random.default_rng(0)
     dec = TurboDecoder(k=k, iterations=6, window=(128 if k % 128 == 0 else 64))

@@ -2,12 +2,9 @@
 import os, sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
-import jax
-jax.config.update("jax_platforms", "cpu")
-cache = os.path.join(os.path.dirname(__file__), "..", "tests", ".jax_cache")
-jax.config.update("jax_compilation_cache_dir", cache)
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+from empower_srslte_tpu.backend import configure_compile_cache
+
+configure_compile_cache()
 
 from tests.test_stack import _epc
 from empower_srslte_tpu.stack import Air, EnbStack, UeStack

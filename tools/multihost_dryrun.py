@@ -1,4 +1,4 @@
-"""Multi-process (multi-host) dryrun: DCN-axis sharding evidence.
+"""Multi-process (multi-host) dryrun: host-axis sharding evidence.
 
 Launches N real OS processes, each owning 4 virtual CPU devices, joins
 them via ``jax.distributed`` and builds the global (host, carrier, sf)
@@ -11,13 +11,14 @@ collectives:
      every process checking its own shards' decoded bits;
   B. the trellis-sharded NII turbo decode (sp_turbo_decode_nii) with
      axis='host': the per-window-edge boundary-metric ``ppermute`` and
-     the extrinsic ``all_gather`` cross the process (DCN) boundary each
+     the extrinsic ``all_gather`` cross the process boundary each
      half-iteration, and decoded bits must match the encoder input
      exactly.
 
-This is the "1 chip -> 1 host -> N hosts" structural evidence BASELINE
+This is the "1 card -> 1 host -> N hosts" structural evidence BASELINE
 asks for, validated the same way the single-process dryrun validates
-ICI sharding (no multi-host hardware is attached to this box).
+in-host sharding. It runs on the CPU only (virtual devices): several
+JAX processes cannot share one GPU, whose memory the first one takes.
 
 Usage:  python tools/multihost_dryrun.py [n_processes]   (default 2)
 Prints MULTIHOST_OK on success.
@@ -69,7 +70,7 @@ def worker(rank: int, nproc: int, port: int) -> None:
 
     def stepped(tb_bits):
         bits, ok = local_step(tb_bits)
-        # cross-host collective: global success count over DCN
+        # cross-host collective: global success count
         n_ok_global = jax.lax.psum(
             jnp.sum(ok.astype(jnp.int32)), ("host", "carrier", "sf"))
         return bits, n_ok_global

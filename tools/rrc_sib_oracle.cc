@@ -213,7 +213,7 @@ int main() {
   memset(&sib9, 0, sizeof(sib9));
   sib9.hnb_name_present = true;
   sib9.hnb_name_size = 5;
-  memcpy(sib9.hnb_name, "tpu-1", 5);
+  memcpy(sib9.hnb_name, "srs-1", 5);
   p = bits.msg;
   liblte_rrc_pack_sys_info_block_type_9_ie(&sib9, &p);
   show("SIB9", bits.msg, p);
