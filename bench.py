@@ -43,6 +43,21 @@ def _sync(x):
     return int(jax.block_until_ready(x))
 
 
+def require(ok: bool, what: str, r=None) -> None:
+    """End the run with a non-zero exit code when a phase's check fails,
+    before its numbers are printed as a result."""
+    if not ok:
+        raise SystemExit(f"bench: {what} failed: {json.dumps(r)}")
+
+
+def bad_bits(bits, tb, ok):
+    """Wrong decoded bits over the TBs whose CRC passed: 0 means no
+    CRC-passing TB differs from the sent one. It consumes the decoded
+    PAYLOAD fully (not just the CRC flags): dead decoded bits let XLA
+    drop the reassembly stage."""
+    return jnp.sum(((bits != tb) & ok[..., None]).astype(jnp.int32))
+
+
 def memory_summary(compiled) -> dict:
     """Device memory of a compiled program (compiled.memory_analysis())."""
     m = compiled.memory_analysis()
@@ -150,7 +165,8 @@ def bench_receiver(config: str, batch: int = 256, chain: int = 24,
     alongside Mbps, so the early-stop depth is captured, not asserted.
 
     Returns a dict: mbps, sfps, crc_ok (every CRC of every call passed),
-    tb_exact (every decoded TB equals the transmitted one), iters, bler.
+    tb_exact (every TB whose CRC passed equals the transmitted one),
+    iters, bler.
     """
     from empower_srslte_tpu.models import ra
     from empower_srslte_tpu.models.pdsch import (PdschConfig, pdsch_decode,
@@ -198,10 +214,7 @@ def bench_receiver(config: str, batch: int = 256, chain: int = 24,
                 y, h, cfg, plan, noise_est=n0, plan2=plan, iters_out=ilist)
             n_it = jnp.max(jnp.stack(ilist)) if ilist \
                 else jnp.zeros((), jnp.int32)
-            # consume the decoded PAYLOAD fully (not just the CRC flags):
-            # dead decoded bits let XLA drop the reassembly stage
-            n_bad = (jnp.sum((b1 != tb).astype(jnp.int32))
-                     + jnp.sum((b2 != tb2).astype(jnp.int32)))
+            n_bad = bad_bits(b1, tb, ok1) + bad_bits(b2, tb2, ok2)
             return (jnp.sum(ok1) + jnp.sum(ok2)).astype(jnp.int32), \
                 n_it, n_bad
 
@@ -240,7 +253,7 @@ def bench_receiver(config: str, batch: int = 256, chain: int = 24,
             n_it = jnp.max(jnp.stack(ilist)) if ilist \
                 else jnp.zeros((), jnp.int32)
             return jnp.sum(ok).astype(jnp.int32), n_it, \
-                jnp.sum((bits != tb).astype(jnp.int32))
+                bad_bits(bits, tb, ok)
 
         bits_per_sf = tbs
         n_expected = batch
@@ -274,7 +287,7 @@ def bench_receiver(config: str, batch: int = 256, chain: int = 24,
             n_it = jnp.max(jnp.stack(ilist)) if ilist \
                 else jnp.zeros((), jnp.int32)
             return jnp.sum(ok).astype(jnp.int32), n_it, \
-                jnp.sum((bits != tb).astype(jnp.int32))
+                bad_bits(bits, tb, ok)
 
         bits_per_sf = tbs
         n_expected = batch
@@ -451,14 +464,13 @@ def bench_uedl(batch: int = 256, chain: int = 24, mimo: bool = False):
                 iters_out=ilist)
             ok_sum = jnp.sum(ok1.astype(jnp.int32)) \
                 + jnp.sum(ok2.astype(jnp.int32))
-            n_bad = (jnp.sum((b1 != tb).astype(jnp.int32))
-                     + jnp.sum((b2 != tb2).astype(jnp.int32)))
+            n_bad = bad_bits(b1, tb, ok1) + bad_bits(b2, tb2, ok2)
         else:
             bits, ok, _ = pdsch_decode(
                 grid[:, None], h[:, None, None], cfg, plan,
                 noise_est=n0[:, None], iters_out=ilist)
             ok_sum = jnp.sum(ok.astype(jnp.int32))
-            n_bad = jnp.sum((bits != tb).astype(jnp.int32))
+            n_bad = bad_bits(bits, tb, ok)
         n_it = jnp.max(jnp.stack(ilist)) if ilist \
             else jnp.zeros((), jnp.int32)
         good = ok_sum + jnp.minimum(cfi_ok, batch) \
@@ -533,10 +545,11 @@ def bench_latency():
     out = {}
     for b in (1, 8):
         r = bench_uedl(batch=b, mimo=True)
+        require(r["crc_ok"] and r["tb_exact"],
+                f"uedl latency batch {b}: every CRC passes", r)
         sfps = r["sfps"]
         ms = round(b / sfps * 1e3, 3) if sfps else None
         out[f"uedl_latency_b{b}_ms"] = ms
-        out[f"uedl_latency_b{b}_ok"] = r["crc_ok"] and r["tb_exact"]
         out[f"uedl_latency_b{b}_deadline_ok"] = (
             ms is not None and (b - 1) + ms <= 4.0)
     return out
@@ -598,7 +611,7 @@ def bench_tx(batch: int = 256, chain: int = 24):
         t0 = time.time()
         for _ in range(reps):
             r = chained(tb, tb2)
-        float(np.asarray(r))
+        jax.block_until_ready(r)
         dt = (time.time() - t0) / (reps * chain)
         best_mbps = max(best_mbps, 2 * tbs * batch / dt / 1e6)
     return {"mbps": round(best_mbps, 0), "finite": finite,
@@ -608,8 +621,9 @@ def bench_tx(batch: int = 256, chain: int = 24):
 def main():
     """Receivers first, then the full-chain UE, TX and latency phases,
     the turbo headline last. The cumulative JSON is printed after every
-    phase; an exception in any phase ends the run with a non-zero exit
-    code. Set BENCH_QUICK=1 to run the turbo phase only."""
+    phase; a failed check (a CRC, a TB, a bit error, a non-finite
+    sample) or an exception in any phase ends the run with a non-zero
+    exit code. Set BENCH_QUICK=1 to run the turbo phase only."""
     t_start = time.time()
     dev = jax.devices()[0]
     out = {"platform": dev.platform, "device_kind": dev.device_kind,
@@ -622,9 +636,10 @@ def main():
         for config in ("20mimo", "10siso", "20ul"):
             t0 = time.time()
             r = bench_receiver(config)
+            require(r["crc_ok"] and r["tb_exact"],
+                    f"rx_{config}: every CRC passes and every TB is exact", r)
             out[f"rx_{config}_mbps"] = r["mbps"]
             out[f"rx_{config}_sfps"] = r["sfps"]
-            out[f"rx_{config}_ok"] = r["crc_ok"] and r["tb_exact"]
             out[f"rx_{config}_iters"] = r["iters"]
             out[f"rx_{config}_vs_baseline"] = round(
                 r["mbps"] / RX_BASELINE[config], 1)
@@ -636,6 +651,9 @@ def main():
         for config in ("20mimo", "10siso", "20ul"):
             t0 = time.time()
             r = bench_receiver(config, midsnr=True)
+            require(r["tb_exact"] and r["bler"] < 1.0,
+                    f"rx_{config}_mid: some TB decodes and every TB whose "
+                    "CRC passes is exact", r)
             out[f"rx_{config}_mid_mbps"] = r["mbps"]
             out[f"rx_{config}_mid_bler"] = r["bler"]
             out[f"rx_{config}_mid_iters"] = r["iters"]
@@ -650,17 +668,18 @@ def main():
         for name, kw, base in uedl_phases:
             t0 = time.time()
             r = bench_uedl(**kw)
+            require(r["crc_ok"] and r["tb_exact"],
+                    f"{name}: every CRC passes and every TB is exact", r)
             out[f"{name}_mbps"] = r["mbps"]
             out[f"{name}_sfps"] = r["sfps"]
-            out[f"{name}_ok"] = r["crc_ok"] and r["tb_exact"]
             out[f"{name}_iters"] = r["iters"]
             out[f"{name}_vs_baseline"] = round(r["mbps"] / base, 1)
             out[f"t_{name}_s"] = round(time.time() - t0, 1)
             checkpoint()
         t0 = time.time()
         r = bench_tx()
+        require(r["finite"], "tx_20mimo: samples finite", r)
         out["tx_20mimo_mbps"] = r["mbps"]
-        out["tx_20mimo_ok"] = r["finite"]
         out["tx_20mimo_vs_baseline"] = round(r["mbps"] / 150.0, 1)
         out["t_tx_20mimo_s"] = round(time.time() - t0, 1)
         checkpoint()
@@ -672,6 +691,8 @@ def main():
 
     t0 = time.time()
     mbps, errs, batch = bench_turbo()
+    require(errs == 0, "turbo decode: 0 bit errors at Eb/N0 1.5 dB",
+            {"mbps": mbps, "bit_errors": errs})
     out.update({
         "metric": "turbo_decode_throughput_k6144_5it",
         "value": mbps,

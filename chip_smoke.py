@@ -104,19 +104,30 @@ def phase_apps(nof_prb: int = 100, mcs: int = 27, frames: int = 10) -> None:
     check(res["crc_errors"] == 0, "every PDSCH CRC passes")
 
 
-def phase_flagship(chain: int = 1) -> None:
-    """(b) The batch-256 flagship programs through the default decoder."""
+def phase_flagship(batch: int = 256, chain: int = 1) -> None:
+    """(b) The batch-256 flagship programs through the default decoder.
+
+    The four programs are built from four threads at once, so that their
+    compiles (minutes each when the cache is cold) overlap; their Mbps
+    are therefore not measurements (bench.py runs them one at a time)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import bench
 
-    for name, call in (
-            ("rx_20mimo", lambda: bench.bench_receiver("20mimo", chain=chain)),
-            ("rx_uedl_20mimo", lambda: bench.bench_uedl(chain=chain,
-                                                        mimo=True)),
-            ("rx_20ul", lambda: bench.bench_receiver("20ul", chain=chain)),
-            ("tx_20mimo", lambda: bench.bench_tx(chain=chain))):
+    def timed(call):
         t0 = time.time()
-        r = call()
-        say(f"{name}: {time.time() - t0:.1f}s", json.dumps(r))
+        return call(), time.time() - t0
+
+    calls = (
+        ("rx_20mimo", lambda: bench.bench_receiver("20mimo", batch, chain)),
+        ("rx_uedl_20mimo", lambda: bench.bench_uedl(batch, chain,
+                                                    mimo=True)),
+        ("rx_20ul", lambda: bench.bench_receiver("20ul", batch, chain)),
+        ("tx_20mimo", lambda: bench.bench_tx(batch, chain)))
+    with ThreadPoolExecutor(len(calls)) as pool:
+        done = list(pool.map(lambda nc: timed(nc[1]), calls))
+    for (name, _call), (r, secs) in zip(calls, done):
+        say(f"{name}: {secs:.1f}s", json.dumps(r))
         if name == "tx_20mimo":
             check(r["finite"], "TX samples finite")
         else:
@@ -227,14 +238,64 @@ def viterbi_check(batch: int = 256, interpret: bool = False,
     return out
 
 
+def encoder_ks(sample: int = 47) -> list[int]:
+    """The turbo code-block sizes of the flagship and app transport
+    blocks, and every ``sample``-th of the 188 LTE sizes (ends kept)."""
+    from empower_srslte_tpu.models import ra
+    from empower_srslte_tpu.ops.fec import TURBO_CB_SIZES
+    from empower_srslte_tpu.ops.fec.cbsegm import cbsegm
+
+    ks = set(TURBO_CB_SIZES[::sample]) | {TURBO_CB_SIZES[-1]}
+    for mcs, n_prb, dl in ((27, 100, True), (25, 100, True),
+                           (20, 96, False), (23, 50, True),
+                           (27, 98, True)):     # pdsch_enodeb at 100 PRB
+        s = cbsegm(ra.mcs_to_tbs(mcs, n_prb, dl=dl)[1])
+        ks |= {k for k, n in ((s.k_plus, s.c_plus), (s.k_minus, s.c_minus))
+               if n}
+    return sorted(ks)
+
+
+def encoder_check(ks=None, batch: int = 64, big: int = 5632,
+                  k_big: int = 5824, timing: bool = True) -> dict:
+    """turbo_encode on the card against turbo_encode_np, every output bit
+    (tail columns included): ``batch`` code blocks at each K of
+    encoder_ks(), and ``big`` code blocks (the 11 CBs x 2 codewords x 256
+    subframes of tx_20mimo) at the flagship's ``k_big``."""
+    import jax
+    import jax.numpy as jnp
+
+    from empower_srslte_tpu.ops.fec import turbo_encode, turbo_encode_np
+
+    ks = sorted(set(encoder_ks() if ks is None else ks) | {k_big})
+    rng = np.random.default_rng(13)
+    enc = jax.jit(turbo_encode)
+    bad, inputs = {}, {}
+    for k in ks:
+        u = rng.integers(0, 2, size=(big if k == k_big else batch, k))
+        inputs[k] = jnp.asarray(u.astype(np.int8))
+        n = int(np.sum(np.any(np.asarray(enc(inputs[k]))
+                              != turbo_encode_np(u), axis=(-2, -1))))
+        if n:
+            bad[k] = n
+    out = {"ks": len(ks), "k_min": min(ks), "k_max": max(ks),
+           "blocks_wrong": bad}
+    if timing:
+        out[f"b{big}_k{k_big}_ms"] = median_ms(enc, inputs[k_big])
+    check(not bad,
+          "turbo_encode on the card equals turbo_encode_np bit for bit")
+    return out
+
+
 def llr_check(batch: int = 4) -> dict:
     """Equalizer + soft demapper LLRs of a 20 MHz 2x2 TM4 subframe on the
     card against the same inputs on the host CPU backend.
 
-    Tolerance: 1e-3 of the largest |LLR|, below the resolution of the
-    bf16 metrics the turbo kernel takes them in (2^-8); the two backends
-    round divisions and square roots differently. No LLR larger than
-    that tolerance may change sign."""
+    Tolerance: 1e-5 of the largest |LLR|, about 12x the largest
+    difference read on an H100 (8.6e-7; the backends round divisions and
+    square roots differently). A control run on the card from inputs
+    rounded to bfloat16 must miss that tolerance by 10x, so the check can
+    see an error of that size. No LLR above the tolerance may change
+    sign."""
     import jax
     import jax.numpy as jnp
 
@@ -245,6 +306,7 @@ def llr_check(batch: int = 4) -> dict:
     from empower_srslte_tpu.ops.modem import demod_soft
     from empower_srslte_tpu.utils import Cell
 
+    tol = 1e-5
     cell = Cell(nof_prb=100, nof_ports=2, id=1)
     mod, tbs = ra.mcs_to_tbs(27, 100)
     cfg = PdschConfig(cell=cell, sf_idx=1, cfi=1, mod=mod,
@@ -253,8 +315,11 @@ def llr_check(batch: int = 4) -> dict:
     plan = cfg.plan(tbs)
     rng = np.random.default_rng(9)
     tb = rng.integers(0, 2, size=(2, batch, tbs)).astype(np.int8)
-    ports = np.asarray(pdsch_encode(jnp.asarray(tb[0]), cfg, plan,
-                                    jnp.asarray(tb[1]), plan))
+    cpu = jax.devices("cpu")[0]
+    on = lambda dev, *vs: [jax.device_put(jnp.asarray(v), dev) for v in vs]
+    ports = np.asarray(jax.jit(
+        lambda a, b: pdsch_encode(a, cfg, plan, b, plan))(
+            *on(jax.devices()[0], tb[0], tb[1])))
     # per-subframe well-conditioned 2x2 channel (as bench_uedl's)
     ph = rng.uniform(0, 2 * np.pi, size=(batch, 2, 2))
     mag = np.where(np.eye(2, dtype=bool)[None], 1.0, 0.35)
@@ -273,22 +338,29 @@ def llr_check(batch: int = 4) -> dict:
         x, _csi = eq_mux_2x2(ye, he, 1e-3)
         return demod_soft(x, mod)
 
-    cpu = jax.devices("cpu")[0]
-    on = lambda dev: [jax.device_put(jnp.asarray(v), dev)
-                      for v in (y.astype(np.complex64), h)]
-    got = np.asarray(jax.jit(llrs)(*on(jax.devices()[0])))
-    want = np.asarray(jax.jit(llrs)(*on(cpu)))
+    y = y.astype(np.complex64)
+    bf16 = lambda v: (v.real.astype(jnp.bfloat16).astype(np.float32)
+                      + 1j * v.imag.astype(jnp.bfloat16).astype(np.float32)
+                      ).astype(np.complex64)
+    llrs = jax.jit(llrs)
+    got = np.asarray(llrs(*on(jax.devices()[0], y, h)))
+    want = np.asarray(llrs(*on(cpu, y, h)))
+    ctl = np.asarray(llrs(*on(jax.devices()[0], bf16(y), bf16(h))))
     scale = float(np.max(np.abs(want)))
     err = np.abs(got - want)
-    big = np.abs(want) > 1e-3 * scale
+    big = np.abs(want) > tol * scale
     out = {"n_llr": int(want.size), "max_abs_llr": scale,
            "max_rel_diff": float(np.max(err)) / scale,
            "p99_rel_diff": float(np.percentile(err, 99)) / scale,
+           "bf16_control_max_rel_diff":
+               float(np.max(np.abs(ctl - want))) / scale,
            "sign_flips_above_tol": int(np.sum(
                (np.sign(got) != np.sign(want)) & big))}
     say("demap_llr_gpu_vs_cpu:", json.dumps(out))
-    check(out["max_rel_diff"] < 1e-3,
-          "GPU LLRs within 1e-3 of max |LLR| of the CPU's")
+    check(out["max_rel_diff"] < tol,
+          f"GPU LLRs within {tol} of max |LLR| of the CPU's")
+    check(out["bf16_control_max_rel_diff"] > 10 * tol,
+          "the LLR check sees a bf16 rounding of its inputs")
     check(out["sign_flips_above_tol"] == 0, "no LLR sign flips")
     return out
 
@@ -301,6 +373,7 @@ def phase_kernels() -> None:
     for name, fn in (("nii_kernel_f32_k6144_b2048", nii_kernel_check),
                      ("turbo_decode_k6144_b2048_1.5dB", turbo_decode_check),
                      ("viterbi_20mhz_pdcch_b256", viterbi_check),
+                     ("turbo_encode_vs_numpy", encoder_check),
                      ("demap_llr_gpu_vs_cpu", llr_check)):
         t0 = time.time()
         r = fn()

@@ -14,6 +14,7 @@ import pathlib
 
 import numpy as np
 
+import jax
 import jax.numpy as jnp
 
 _DATA = pathlib.Path(__file__).resolve().parent.parent / "data"
@@ -46,7 +47,9 @@ def rm_decode(llrs, n_out: int, o: int):
     via exhaustive correlation).
     """
     cb = jnp.asarray(_codebook(n_out, o))              # [2^O, n]
-    corr = jnp.einsum("...n,cn->...c", llrs, cb)
+    # full float32 precision (a GPU would otherwise take it in TF32)
+    corr = jnp.einsum("...n,cn->...c", llrs, cb,
+                      precision=jax.lax.Precision.HIGHEST)
     best = jnp.argmax(corr, axis=-1)
     bits = (best[..., None] >> jnp.arange(o)) & 1
     return bits.astype(jnp.int8)

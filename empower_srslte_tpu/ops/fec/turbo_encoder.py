@@ -127,7 +127,8 @@ def turbo_encode_np(u: np.ndarray) -> np.ndarray:
 # linear map with period-7 columns. Encoding therefore runs as ONE int8
 # matrix product per constituent (int8 tensor cores on the GPU) — with the
 # QPP interleaver folded into the second constituent's matrix as a row
-# permutation — instead of a K-step serial scan over the trellis. The
+# permutation — instead of a K-step serial scan over the trellis; the
+# final state and the termination bits are a few int32 row sums. The
 # reference reaches the same goal with byte-LUT tables (turbocoder.c).
 # Exactness: 0/1 operands accumulate in int32, mod 2 at the end.
 
@@ -176,17 +177,27 @@ def _mm_tables(k: int):
     return gz, fs, tmat
 
 
-def _rsc_encode_mm_jnp(u, gz_j, fs_j, tmat_j):
+def _gf2_narrow(x, m):
+    """(x @ m) mod 2 for a narrow 0/1 map m [n, c] (c <= 6), one int32
+    row sum per column, no matrix product: on an H100, XLA's int8 matrix
+    product [..., 3] @ [3, 6] returned wrong sums (the [..., K] @ [K, 3]
+    one was right; a [B, K, 3] broadcast sum in its place made the
+    encoder 2.6x slower)."""
+    import jax.numpy as jnp
+
+    x = x.astype(jnp.int32)
+    m = np.asarray(m, np.int32)
+    return jnp.stack([jnp.sum(x * m[:, c], axis=-1)
+                      for c in range(m.shape[1])], axis=-1) & 1
+
+
+def _rsc_encode_mm_jnp(u, gz_j, fs, tmat):
     """u [..., K] int8 -> (parity [..., K], x_tail [..., 3], z_tail)."""
     import jax.numpy as jnp
 
     acc = jnp.matmul(u, gz_j, preferred_element_type=jnp.int32)
     z = (acc & 1).astype(jnp.int8)
-    s_bits = jnp.matmul(u, fs_j, preferred_element_type=jnp.int32) & 1
-    # the [3, 6] termination map as elementwise products: an int8 matrix
-    # product with a contraction of 3 returns wrong sums on the GPU
-    tails = (jnp.sum(s_bits[..., :, None] * tmat_j.astype(jnp.int32),
-                     axis=-2) & 1).astype(jnp.int8)
+    tails = _gf2_narrow(_gf2_narrow(u, fs), tmat).astype(jnp.int8)
     return z, tails[..., 0:3], tails[..., 3:6]
 
 
@@ -206,11 +217,8 @@ def turbo_encode(u):
     f2 = np.empty_like(fs)
     f2[pi] = fs
     u = u.astype(jnp.int8)
-    tmat_j = jnp.asarray(tmat)
-    z, x_t, z_t = _rsc_encode_mm_jnp(u, jnp.asarray(gz), jnp.asarray(fs),
-                                     tmat_j)
-    z2, x2_t, z2_t = _rsc_encode_mm_jnp(u, jnp.asarray(g2), jnp.asarray(f2),
-                                        tmat_j)
+    z, x_t, z_t = _rsc_encode_mm_jnp(u, jnp.asarray(gz), fs, tmat)
+    z2, x2_t, z2_t = _rsc_encode_mm_jnp(u, jnp.asarray(g2), f2, tmat)
 
     d0 = jnp.concatenate(
         [u, x_t[..., 0:1], z_t[..., 1:2], x2_t[..., 0:1], z2_t[..., 1:2]],

@@ -249,6 +249,33 @@ class TestChipSmokeChecksOnCpu:
         r = chip_smoke.viterbi_check(batch=1, interpret=True, timing=False)
         assert r == {"k55_identical": True, "k44_identical": True}
 
+    def test_encoder_ks_cover_the_flagship_blocks(self):
+        import chip_smoke
+
+        ks = chip_smoke.encoder_ks()
+        # 20 MHz MCS 27/25 DL, 96-PRB MCS 20 UL, 10 MHz MCS 23 DL, ends
+        assert {5824, 5760, 5120, 40, 6144} <= set(ks)
+        assert 8 <= len(ks) <= 12
+
+    def test_encoder_check(self):
+        import chip_smoke
+
+        r = chip_smoke.encoder_check(ks=[40, 1056], batch=3, big=2,
+                                     timing=False)
+        assert r["blocks_wrong"] == {} and r["ks"] == 3
+
+    def test_encoder_check_sees_a_wrong_tail(self, monkeypatch):
+        """A wrong termination bit fails the check (the columns past K
+        are compared too)."""
+        import chip_smoke
+        from empower_srslte_tpu.ops import fec
+
+        real = fec.turbo_encode
+        monkeypatch.setattr(fec, "turbo_encode",
+                            lambda u: real(u).at[..., 1, -1].add(1) % 2)
+        with pytest.raises(RuntimeError, match="bit for bit"):
+            chip_smoke.encoder_check(ks=[40], batch=2, big=1, timing=False)
+
     def test_sharded_nii_check(self):
         import chip_smoke
 
@@ -275,6 +302,17 @@ class TestOnGpu:
             jnp.asarray(llr))
         np.testing.assert_array_equal(np.asarray(bits), u)
 
+    @pytest.mark.parametrize("k", [40, 6144])
+    def test_turbo_encode_compiled(self, gpu, rng, k):
+        """Every output bit, tail columns included, equals the numpy
+        encoder's."""
+        from empower_srslte_tpu.ops.fec import turbo_encode, turbo_encode_np
+
+        u = rng.integers(0, 2, size=(300, k)).astype(np.int8)
+        np.testing.assert_array_equal(
+            np.asarray(jax.jit(turbo_encode)(jnp.asarray(u))),
+            turbo_encode_np(u))
+
     def test_viterbi_compiled(self, gpu, rng):
         from empower_srslte_tpu.ops.fec.convcoder import (conv_encode_np,
                                                           viterbi_decode)
@@ -286,3 +324,25 @@ class TestOnGpu:
         np.testing.assert_array_equal(
             np.asarray(viterbi_decode(llr)),
             np.asarray(viterbi_decode(llr, impl="scan")))
+
+
+class TestBenchGuards:
+    """bench.py ends a run whose phase decoded wrongly, before it prints
+    the phase's numbers."""
+
+    def test_require_exits_non_zero(self):
+        import bench
+
+        bench.require(True, "fine")
+        with pytest.raises(SystemExit) as e:
+            bench.require(False, "rx_20mimo", {"crc_ok": False})
+        assert e.value.code != 0 and "rx_20mimo" in str(e.value.code)
+
+    def test_bad_bits_counts_crc_passing_tbs_only(self):
+        import bench
+
+        tb = jnp.zeros((3, 8), jnp.int8)
+        bits = tb.at[0, 1].set(1).at[2, :4].set(1)
+        ok = jnp.asarray([True, True, False])
+        assert int(bench.bad_bits(bits, tb, ok)) == 1
+        assert int(bench.bad_bits(bits, tb, jnp.ones(3, bool))) == 5
